@@ -1,0 +1,204 @@
+"""Fused policy-in-kernel PPO rollout: K autoreset steps per launch.
+
+Counterpart of `acas2d_tpu/ops/pallas_policy.py:67-266,375-430`.  Each step
+runs the actor-critic forward, a Box-Muller sample on the counter-based hash
+RNG, the log-prob of the raw sample, the clipped action, the whole autoreset
+env step (integration, geometry with the bug_compat quirks, shaped reward,
+outcome codes, masked respawn) and the next observation.  The RNG streams
+are the Pallas kernel's, so for the same seed, weights and state the port
+and the TPU kernel draw the same samples.
+
+`fused_policy_rollout` launches the CUDA kernel (`csrc/policy_rollout.cu`)
+for CUDA tensors and runs the plain version (`_rollout_plain`, the same
+per-step arithmetic in torch over the batch) for CPU tensors.  There is no
+fallback between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from acas2d_tpu_torch.config import DEFAULT_PARAMS, EnvParams
+from acas2d_tpu_torch.models.actor_critic import (N_PARAMS, split_flat,
+                                                  tower_forward)
+from acas2d_tpu_torch.ops import _cuda
+from acas2d_tpu_torch.ops import step_math as sm
+
+STATE_KEYS = ("px", "py", "psi", "tx", "ty", "tv", "tpsi", "total_reward")
+BUFFER_F32 = ("actions", "log_probs", "values", "rewards", "dones",
+              "episode_return")
+BUFFER_I32 = ("episode_steps", "outcome")
+
+
+class _RolloutConsts(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_float) for n in sm.CONST_NAMES]
+                + [("max_steps", ctypes.c_int)])
+
+
+def _rollout_plain(c: Dict[str, float], max_steps: int, st: torch.Tensor,
+                   steps: torch.Tensor, obs: torch.Tensor,
+                   params: torch.Tensor, seed: int, step_offset: int, K: int):
+    """The kernel's arithmetic in torch over the batch.  Same operands and
+    outputs as the kernel: st (8, B), steps (B,) int32, obs (B, 8) ->
+    (st_out (9, B), steps_out, obs_out, obs_buf (K, B, 8),
+     fbuf (6, K, B), ibuf (2, K, B))."""
+    B = st.shape[1]
+    dev = st.device
+    pi, vf, log_std = split_flat(params)
+    ls = torch.clamp(log_std[0], -4.0, 2.0)
+    sigma = torch.exp(ls)
+    logp_const = -ls - c["half_log_2pi"]
+    base = sm.rng_base(seed, torch.arange(B, device=dev))
+    v, dt = c["v"], c["dt"]
+
+    px, py, psi, tx, ty, tv, tpsi, tot = st.unbind(0)
+    tcos = torch.cos(tpsi * sm.DEG2RAD)
+    tsin = torch.sin(tpsi * sm.DEG2RAD)
+    obs_buf = torch.empty(K, B, 8, dtype=torch.float32, device=dev)
+    fbuf = torch.empty(6, K, B, dtype=torch.float32, device=dev)
+    ibuf = torch.empty(2, K, B, dtype=torch.int32, device=dev)
+    a_live = torch.zeros_like(px)
+    for i in range(K):
+        step_id = step_offset + i
+        # policy forward + gaussian sample (SB3 collect_rollouts)
+        mean = tower_forward(obs, pi)[2]
+        value = tower_forward(obs, vf)[2]
+        u1 = sm._u01_hash(base, step_id, 4)
+        u2 = sm._u01_hash(base, step_id, 5)
+        z = (torch.sqrt(-2.0 * torch.log(torch.clamp(1.0 - u1, min=sm.f32(1e-12))))
+             * torch.cos(sm.TWO_PI * u2))
+        action = mean + sigma * z                     # raw sample
+        dz = (action - mean) / sigma
+        logp = logp_const - 0.5 * dz * dz
+        a_lat = torch.clamp(action, -1.0, 1.0) * c["acc"]
+        obs_buf[i] = obs
+        fbuf[0, i], fbuf[1, i], fbuf[2, i] = action, logp, value
+
+        # integrate player + traffic (aircraft.py:16-26)
+        psi = sm._mod360(psi + a_lat / v)
+        pr = psi * sm.DEG2RAD
+        cp, sp = torch.cos(pr), torch.sin(pr)
+        px = px + v * cp * dt
+        py = py + v * sp * dt
+        tx = tx + tv * tcos * dt
+        ty = ty + tv * tsin * dt
+        steps = steps + 1
+
+        d_goal, h_goal_rad, d_dev, d_sep, d_cpa, v_closing = sm.env_geometry(
+            px, py, cp, sp, psi, tx, ty, tv, tcos, tsin, a_lat, c)
+        r_step = sm.shaped_step_reward(
+            psi, h_goal_rad * sm.f32(1.0 / sm.DEG2RAD), d_goal, d_dev, d_cpa,
+            v_closing, c)
+        collided = d_sep < c["coll_dist"]
+        at_goal = d_goal < c["goal_radius"]
+        timeout = steps > max_steps
+        tdf = 1.0 - steps.to(torch.float32) * c["inv_max_steps"]
+        reward = (r_step * tdf
+                  + torch.where(collided, c["reward_collision"], 0.0)
+                  + torch.where(at_goal, c["reward_goal"], 0.0))
+        tot = tot + reward
+        done = timeout | collided | at_goal
+        outcome = torch.where(timeout, 3, torch.where(
+            collided, 2, torch.where(at_goal, 1, 0))).to(torch.int32)
+        fbuf[3, i], fbuf[4, i] = reward, done.to(torch.float32)
+        fbuf[5, i] = torch.where(done, tot, 0.0)
+        ibuf[0, i] = torch.where(done, steps, 0)
+        ibuf[1, i] = outcome
+
+        # masked respawn (reset_from semantics); observe() leaves steps == 1
+        fpx, fpy, fpsi, ftx, fty, ftv, ftpsi = sm.respawn(
+            sm._u01_hash(base, step_id, 1), sm._u01_hash(base, step_id, 2),
+            sm._u01_hash(base, step_id, 3), c)
+        ftr = ftpsi * sm.DEG2RAD
+        px = torch.where(done, fpx, px)
+        py = torch.where(done, fpy, py)
+        psi = torch.where(done, fpsi, psi)
+        tx = torch.where(done, ftx, tx)
+        ty = torch.where(done, fty, ty)
+        tv = torch.where(done, ftv, tv)
+        tpsi = torch.where(done, ftpsi, tpsi)
+        tcos = torch.where(done, torch.cos(ftr), tcos)
+        tsin = torch.where(done, torch.sin(ftr), tsin)
+        steps = torch.where(done, 1, steps).to(torch.int32)
+        tot = torch.where(done, 0.0, tot)
+
+        # next observation; the closing-speed lookahead holds the live a_lat
+        a_live = torch.where(done, 0.0, a_lat)
+        pr = psi * sm.DEG2RAD
+        cp, sp = torch.cos(pr), torch.sin(pr)
+        geo = sm.env_geometry(px, py, cp, sp, psi, tx, ty, tv, tcos, tsin,
+                              a_live, c)
+        obs = sm.build_obs(steps, psi, *geo, c)
+
+    st_out = torch.stack([px, py, psi, tx, ty, tv, tpsi, tot, a_live])
+    return st_out, steps, obs, obs_buf, fbuf, ibuf
+
+
+def _rollout_cuda(c: Dict[str, float], max_steps: int, st: torch.Tensor,
+                  steps: torch.Tensor, obs: torch.Tensor,
+                  params: torch.Tensor, seed: int, step_offset: int, K: int):
+    """Launch csrc/policy_rollout.cu; same operands/outputs as _rollout_plain."""
+    B = st.shape[1]
+    _cuda.require(st, "state", torch.float32, (8, B))
+    _cuda.require(steps, "steps", torch.int32, (B,))
+    _cuda.require(obs, "obs", torch.float32, (B, 8))
+    _cuda.require(params, "params", torch.float32, (N_PARAMS,))
+    lib = _cuda.load("policy_rollout")
+    fn = lib.acas_policy_rollout
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.POINTER(_RolloutConsts)] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 11)
+    dev = st.device
+    st_out = torch.empty(9, B, dtype=torch.float32, device=dev)
+    steps_out = torch.empty(B, dtype=torch.int32, device=dev)
+    obs_out = torch.empty(B, 8, dtype=torch.float32, device=dev)
+    obs_buf = torch.empty(K, B, 8, dtype=torch.float32, device=dev)
+    fbuf = torch.empty(6, K, B, dtype=torch.float32, device=dev)
+    ibuf = torch.empty(2, K, B, dtype=torch.int32, device=dev)
+    consts = _RolloutConsts(**c, max_steps=max_steps)
+    # the kernel takes the seed's int32 bit pattern
+    seed32 = ((int(seed) + (1 << 31)) % (1 << 32)) - (1 << 31)
+    rc = fn(ctypes.byref(consts), B, K, seed32, int(step_offset),
+            _cuda.ptr(params), _cuda.ptr(st), _cuda.ptr(steps),
+            _cuda.ptr(obs), _cuda.ptr(st_out), _cuda.ptr(steps_out),
+            _cuda.ptr(obs_out), _cuda.ptr(obs_buf), _cuda.ptr(fbuf),
+            _cuda.ptr(ibuf), _cuda.stream_of(st))
+    _cuda.check(rc, lib, "policy_rollout launch")
+    fused_policy_rollout.launches += 1
+    return st_out, steps_out, obs_out, obs_buf, fbuf, ibuf
+
+
+def fused_policy_rollout(state: Dict[str, torch.Tensor], obs: torch.Tensor,
+                         params: torch.Tensor, seed: int, step_offset: int,
+                         K: int, env_params: EnvParams = DEFAULT_PARAMS
+                         ) -> Tuple[Dict[str, torch.Tensor],
+                                    Dict[str, torch.Tensor]]:
+    """Run K fused policy+env autoreset steps.
+
+    `state`: (B,) float32 tensors px, py, psi, tx, ty, tv, tpsi,
+    total_reward and int32 steps (one traffic aircraft); `obs` (B, 8);
+    `params`: the (N_PARAMS,) flat vector of `models.actor_critic`.
+    Returns (final state with 'obs' (B, 8) and 'pa_lat' — the last applied
+    lateral acceleration, 0 for envs respawned on their final step —,
+    buffers with (K, B) leaves and obs (K, B, 8)).  `step_offset` advances
+    the per-step RNG counter across chunked launches.
+    """
+    c = sm.kernel_constants(env_params)
+    st = torch.stack([state[k].to(torch.float32) for k in STATE_KEYS])
+    steps = state["steps"].to(torch.int32).contiguous()
+    obs = obs.to(torch.float32).contiguous()
+    fn = _rollout_cuda if st.is_cuda else _rollout_plain
+    st_out, steps_out, obs_out, obs_buf, fbuf, ibuf = fn(
+        c, env_params.max_steps, st, steps, obs, params, seed, step_offset, K)
+    final = dict(zip(STATE_KEYS, st_out[:8]))
+    final.update(steps=steps_out, obs=obs_out, pa_lat=st_out[8])
+    buffers = dict(zip(BUFFER_F32, fbuf))
+    buffers.update(zip(BUFFER_I32, ibuf))
+    buffers["obs"] = obs_buf
+    return final, buffers
+
+
+fused_policy_rollout.launches = 0

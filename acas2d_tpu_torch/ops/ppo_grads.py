@@ -1,0 +1,192 @@
+"""Fused PPO minibatch gradient: forward + hand-derived backward.
+
+Counterpart of `acas2d_tpu/ops/pallas_update.py:60-191,290-297,345-386`
+(f32 operands).  For one packed minibatch (N, 13) =
+[obs(8), action, old_logp, old_value, advantage, return] it returns the
+gradient of `ppo/learner.py:ppo_loss` with respect to the flat parameter
+vector, and the loss statistics.  The branch structure is the JAX kernel's:
+the +-20 log-ratio clamp zeroes the gradient outside it (`delta_in`), the
+clip band test is strict (`in_band`), min() selects the unclipped branch
+inside the band and where clipping would have helped (`sel`), the log-std
+gradient is straight-through its clamp, and the loss's `-ent_coef * entropy`
+term adds `-ent_coef` to it.  SB3's per-minibatch advantage normalisation
+runs before the kernel (`normalize_adv_column`).
+
+`ppo_minibatch_grads` launches the CUDA kernel (`csrc/ppo_grads.cu`) for
+CUDA tensors and runs the plain version (`_grads_plain`, the same forward and
+backward in torch) for CPU tensors.  There is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from acas2d_tpu_torch.models.actor_critic import (N_PARAMS, split_flat,
+                                                  tower_forward)
+from acas2d_tpu_torch.ops import _cuda
+
+LOG_2PI = math.log(2.0 * math.pi)
+
+# packed minibatch column layout (learner.ppo_update)
+_OBS, _ACT, _LOGP, _VAL, _ADV, _RET = 0, 8, 9, 10, 11, 12
+N_COLS = 13
+TILE_ROWS = 64        # rows per tile of the CUDA kernel's first pass
+TARGET_BLOCKS = 128   # first-pass blocks per tower
+
+
+def normalize_adv_column(mb_data: torch.Tensor) -> torch.Tensor:
+    """SB3's per-minibatch advantage normalisation on the packed matrix's
+    advantage column (pallas_update.py:290-297).  The std is the
+    population std (ddof 0), as `jnp.std`."""
+    adv = mb_data[:, _ADV]
+    out = mb_data.clone()
+    out[:, _ADV] = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    return out
+
+
+def _constants(n: int, clip_range: float, vf_coef: float):
+    """float32 constants folded as the JAX kernel folds them."""
+    f = np.float32
+    inv_n = f(1.0 / n)
+    eps = f(clip_range)
+    return dict(inv_n=float(inv_n), eps=float(eps),
+                lo=float(f(1.0) - eps), hi=float(f(1.0) + eps),
+                dvalue_scale=float(f(vf_coef) * f(2.0) * inv_n),
+                log_2pi=float(f(LOG_2PI)))
+
+
+def _grads_plain(params: torch.Tensor, data: torch.Tensor, c: Dict,
+                 ent_coef: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's forward and hand-derived backward in torch.
+    Returns (grads (N_PARAMS,) in the flat layout with d log_std - ent_coef
+    last, sums (4,): policy loss, value loss, kl, clip count)."""
+    pi, vf, log_std = split_flat(params)
+    x = data[:, _OBS:_ACT]
+    act, old_logp = data[:, _ACT], data[:, _LOGP]
+    adv, ret = data[:, _ADV], data[:, _RET]
+    cls = torch.clamp(log_std[0], -4.0, 2.0)
+    var = torch.exp(2.0 * cls)
+
+    h1p, h2p, mean = tower_forward(x, pi)
+    h1v, h2v, value = tower_forward(x, vf)
+
+    diff = act - mean
+    logp = -0.5 * (diff * diff / var + 2.0 * cls + c["log_2pi"])
+    delta = logp - old_logp
+    delta_in = torch.abs(delta) < 20.0
+    delta_c = torch.clamp(delta, -20.0, 20.0)
+    ratio = torch.exp(delta_c)
+    lo, hi = c["lo"], c["hi"]
+    in_band = (ratio > lo) & (ratio < hi)
+    unclipped = adv * ratio
+    clipped = adv * torch.clamp(ratio, lo, hi)
+    pl_i = -torch.minimum(unclipped, clipped)
+    verr = value - ret
+    sums = torch.stack([
+        pl_i.sum(), (verr * verr).sum(), ((ratio - 1.0) - delta_c).sum(),
+        (torch.abs(ratio - 1.0) > c["eps"]).to(torch.float32).sum()])
+
+    sel = (in_band | ((adv > 0.0) & (ratio < lo))
+           | ((adv < 0.0) & (ratio > hi)))
+    dlogp = (-(adv * ratio) * c["inv_n"]) * (sel & delta_in).to(torch.float32)
+    dmean = dlogp * (diff / var)
+    dls = (dlogp * (diff * diff / var - 1.0)).sum()
+    dvalue = c["dvalue_scale"] * verr
+
+    def tower_grads(tower, h1, h2, dout):
+        w1, b1, w2, b2, wh, bh = tower
+        g_wh = dout @ h2
+        g_bh = dout.sum().reshape(1)
+        e2 = (dout[:, None] * wh[None, :]) * (1.0 - h2 * h2)
+        g_w2 = e2.T @ h1
+        g_b2 = e2.sum(0)
+        e1 = (e2 @ w2) * (1.0 - h1 * h1)
+        g_w1 = e1.T @ x
+        g_b1 = e1.sum(0)
+        return [g_w1.reshape(-1), g_b1, g_w2.reshape(-1), g_b2, g_wh, g_bh]
+
+    grads = torch.cat(tower_grads(pi, h1p, h2p, dmean)
+                      + tower_grads(vf, h1v, h2v, dvalue)
+                      + [(dls - ent_coef).reshape(1)])
+    return grads, sums
+
+
+def _grads_cuda(params: torch.Tensor, data: torch.Tensor, c: Dict,
+                ent_coef: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/ppo_grads.cu (both passes); same outputs as _grads_plain."""
+    n = data.shape[0]
+    _cuda.require(data, "minibatch", torch.float32, (n, N_COLS))
+    _cuda.require(params, "params", torch.float32, (N_PARAMS,))
+    lib = _cuda.load("ppo_grads")
+    lib.acas_ppo_grads_partial_floats.restype = ctypes.c_int
+    lib.acas_ppo_grads_partial_floats.argtypes = [ctypes.c_int]
+    fn = lib.acas_ppo_grads
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_float] * 7 + [ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_void_p] * 5)
+    tiles = -(-n // TILE_ROWS)
+    rows_per_block = -(-tiles // TARGET_BLOCKS) * TILE_ROWS
+    nblocks = -(-n // rows_per_block)
+    dev = data.device
+    partial = torch.empty(lib.acas_ppo_grads_partial_floats(nblocks),
+                          dtype=torch.float32, device=dev)
+    grads = torch.empty(N_PARAMS, dtype=torch.float32, device=dev)
+    sums = torch.empty(4, dtype=torch.float32, device=dev)
+    rc = fn(c["inv_n"], c["eps"], c["lo"], c["hi"], c["dvalue_scale"],
+            c["log_2pi"], float(np.float32(ent_coef)), _cuda.ptr(data), n,
+            rows_per_block, nblocks, _cuda.ptr(params), _cuda.ptr(partial),
+            _cuda.ptr(grads), _cuda.ptr(sums), _cuda.stream_of(data))
+    _cuda.check(rc, lib, "ppo_grads launch")
+    ppo_minibatch_grads.launches += 1
+    return grads, sums
+
+
+def _loss_aux(sums: torch.Tensor, n: int, log_std: torch.Tensor,
+              ent_coef: float, vf_coef: float) -> Dict[str, torch.Tensor]:
+    inv_n = 1.0 / n
+    cls = torch.clamp(log_std.to(torch.float32), -4.0, 2.0)
+    policy_loss = sums[0] * inv_n
+    value_loss = sums[1] * inv_n
+    entropy = float(np.float32(0.5 * (1.0 + LOG_2PI))) + cls
+    return {
+        "policy_loss": policy_loss,
+        "value_loss": value_loss,
+        "entropy": entropy,
+        "approx_kl": sums[2] * inv_n,
+        "clip_fraction": sums[3] * inv_n,
+        "loss": policy_loss + ent_coef * (-entropy) + vf_coef * value_loss,
+    }
+
+
+def ppo_minibatch_grads(params: torch.Tensor, mb_data: torch.Tensor, *,
+                        clip_range: float, vf_coef: float, ent_coef: float,
+                        normalize_advantage: bool = True
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Gradient of the clipped PPO loss for one packed minibatch.
+
+    `params`: the (N_PARAMS,) flat parameter vector; `mb_data`: (N, 13)
+    with the RAW advantage column (normalised here when
+    `normalize_advantage`).  Returns (grads (N_PARAMS,) in the same layout,
+    aux dict with ppo_loss's keys plus 'loss', as 0-dim tensors)."""
+    n = mb_data.shape[0]
+    if mb_data.shape[1] != N_COLS:
+        raise ValueError(f"the fused update needs obs_dim 8 / act_dim 1 "
+                         f"(packed width 13, got {mb_data.shape[1]})")
+    data = mb_data.to(torch.float32)
+    if normalize_advantage:
+        data = normalize_adv_column(data)
+    data = data.contiguous()
+    c = _constants(n, clip_range, vf_coef)
+    fn = _grads_cuda if data.is_cuda else _grads_plain
+    grads, sums = fn(params, data, c, ent_coef)
+    aux = _loss_aux(sums, n, params[-1], ent_coef, vf_coef)
+    return grads, aux
+
+
+ppo_minibatch_grads.launches = 0

@@ -1,0 +1,36 @@
+"""The port and chip_smoke.py import neither jax nor the JAX package: in a
+fresh interpreter where importing `jax`, `flax`, `optax` or `acas2d_tpu`
+fails, every module of acas2d_tpu_torch and chip_smoke import cleanly, and
+importing them builds nothing and touches no device."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax", "acas2d_tpu"):
+    sys.modules[name] = None          # any import of these now raises
+import acas2d_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(acas2d_tpu_torch.__path__,
+                                              "acas2d_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+import acas2d_tpu_torch.ops._cuda as c
+assert not c._LIBS
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "optax", "acas2d_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print(len(mods))
+"""
+
+
+def test_port_imports_without_jax():
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15     # every module was imported
