@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from acas2d_tpu_torch import resolve_device
 from acas2d_tpu_torch.config import DEFAULT_PARAMS, EnvParams
 from acas2d_tpu_torch.ops import kinematics as kin
 from acas2d_tpu_torch.ops import rewards as rw
@@ -130,14 +131,16 @@ def _uniform(generator: torch.Generator, shape, lo: float, hi: float):
 
 def spawn(n: int, params: EnvParams = DEFAULT_PARAMS,
           generator: Optional[torch.Generator] = None,
-          dtype=torch.float32, device="cpu") -> EnvState:
-    """Spawn n episodes with draws from `generator`.
+          dtype=torch.float32, device=None) -> EnvState:
+    """Spawn n episodes with draws from `generator` on `device` (default
+    CUDA; see `acas2d_tpu_torch.resolve_device`).
 
     The distributions of the reference spawn (game.py:41,88-114), as
     `acas2d_tpu.envs.core.spawn` draws them with threefry; the bits differ.
     Exact reference streams are `oracle.MersenneSpawner` + `reset_from`.
     """
     p = params
+    device = resolve_device(device)
     g = generator if generator is not None else torch.Generator()
     num_traffic = torch.randint(p.min_traffic, p.max_traffic + 1, (n,),
                                 generator=g, device=g.device)
@@ -190,7 +193,7 @@ def spawn(n: int, params: EnvParams = DEFAULT_PARAMS,
 
 def reset(n: int, params: EnvParams = DEFAULT_PARAMS,
           generator: Optional[torch.Generator] = None,
-          dtype=torch.float32, device="cpu") -> Tuple[EnvState, torch.Tensor]:
+          dtype=torch.float32, device=None) -> Tuple[EnvState, torch.Tensor]:
     """Fresh episodes + initial observations (environment.py:44-48: the
     reference builds the game then observes once, so steps becomes 1)."""
     return observe(spawn(n, params, generator, dtype, device), params)
@@ -198,12 +201,13 @@ def reset(n: int, params: EnvParams = DEFAULT_PARAMS,
 
 def reset_from(player_psi, traffic_x, traffic_y, traffic_v, traffic_psi,
                num_traffic, params: EnvParams = DEFAULT_PARAMS,
-               dtype=torch.float64, device="cpu"
+               dtype=torch.float64, device=None
                ) -> Tuple[EnvState, torch.Tensor]:
     """Reset from externally drawn spawn values: player_psi and num_traffic
     (B,), traffic fields (B, max_traffic) — the host Mersenne parity path
     (see oracle.MersenneSpawner for the draw-order contract)."""
     p = params
+    device = resolve_device(device)
 
     def f(x):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)

@@ -18,9 +18,10 @@ from acas2d_tpu_torch.types import EnvState, StepOutput
 
 def reset_batch(n_envs: int, params: EnvParams = DEFAULT_PARAMS,
                 generator: Optional[torch.Generator] = None,
-                dtype=torch.float32, device="cpu"
+                dtype=torch.float32, device=None
                 ) -> Tuple[EnvState, torch.Tensor]:
-    """Spawn n_envs independent envs: (states (B,)-batched, obs (B, O))."""
+    """Spawn n_envs independent envs: (states (B,)-batched, obs (B, O)) on
+    `device` (default CUDA; raises without it unless given the CPU)."""
     return core.reset(n_envs, params, generator, dtype, device)
 
 

@@ -237,17 +237,26 @@ def ppo_update(params: torch.Tensor, opt_state: AdamState,
 # ------------------------------------------------------------- train step
 
 def make_train_step(cfg: PPOConfig, env_params: EnvParams,
-                    device=None) -> Callable:
+                    device=None,
+                    on_phase: Optional[Callable[[str], None]] = None
+                    ) -> Callable:
     """Returns train_step(state, seed=None, perms=None) -> (state, metrics):
     one PPO iteration (fused rollout, GAE, epochs of fused-gradient Adam
-    steps).  Metrics are 0-dim tensors on the state's device."""
+    steps).  Metrics are 0-dim tensors on the state's device.
+    `on_phase(name)`, when given, is called as each phase ends ("rollout",
+    "gae", "update"), so a caller can time the phases of this very step.
+
+    This is the one place that refuses the PPOConfig options the port does
+    not implement yet."""
     dev = resolve_device(device)
-    unsupported = [name for name in ("fused_update_bf16",
-                                     "fused_update_packed", "update_remat")
-                   if getattr(cfg, name)]
+    unsupported = [f"{name}={getattr(cfg, name)}" for name, ported in (
+        ("fused_rollout", True), ("fused_update", True),
+        ("fused_update_bf16", False), ("fused_update_packed", False),
+        ("update_remat", False)) if getattr(cfg, name) != ported]
     if unsupported:
         raise NotImplementedError(
             f"not ported yet: {', '.join(unsupported)}")
+    mark = on_phase if on_phase is not None else (lambda name: None)
     model = ActorCritic(device=dev)
     optimizer = Optimizer(cfg)
 
@@ -255,12 +264,15 @@ def make_train_step(cfg: PPOConfig, env_params: EnvParams,
                    perms: Optional[Sequence] = None):
         state, batch, last_value, env_metrics = collect_rollout_fused(
             model, state, cfg, env_params, seed)
+        mark("rollout")
         advantages, returns = compute_gae(
             batch.rewards, batch.values, batch.dones, last_value,
             cfg.gamma, cfg.gae_lambda)
+        mark("gae")
         params, opt_state, opt_metrics = ppo_update(
             state.params, state.opt_state, optimizer, batch, advantages,
             returns, cfg, generator=state.generator, perms=perms)
+        mark("update")
         explained_var = 1.0 - (
             torch.var(returns - batch.values, correction=0)
             / (torch.var(returns, correction=0) + 1e-8))

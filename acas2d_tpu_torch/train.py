@@ -11,9 +11,13 @@ metrics per iteration on stdout.
     python -m acas2d_tpu_torch.train --preset tpu --device cpu --n-envs 64 \\
         --n-steps 32 --minibatch-size 512 --total-steps 4096
 
-Flags of the JAX driver that the port does not implement yet (population
-training, the packed or bf16 update, several GPUs) are accepted and rejected
-with an error, so a JAX command line never silently means something else.
+The fused paths are on by default (`--no-fused-rollout` and
+`--no-fused-update` ask for the unfused ones, which are not ported yet).
+Options the port does not implement yet are refused with an error, so a JAX
+command line never silently means something else: the fused-update
+variants map onto their `PPOConfig` fields, which `learner.make_train_step`
+refuses, and flags with no port at all (`--population`) are unknown to the
+parser.
 """
 
 from __future__ import annotations
@@ -51,10 +55,20 @@ def parse_args(argv=None):
                    help="linear LR decay to 0 over the run")
     p.add_argument("--fused-chunk", type=int, default=None,
                    help="steps per fused rollout launch (default 16)")
-    p.add_argument("--fused-rollout", action="store_true",
-                   help="accepted for the JAX command line; always on")
-    p.add_argument("--fused-update", action="store_true",
-                   help="accepted for the JAX command line; always on")
+    p.add_argument("--fused-rollout", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="collect rollouts with the fused policy-in-kernel "
+                        "rollout (default on; the unfused path is not "
+                        "ported yet)")
+    p.add_argument("--fused-update", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="compute each minibatch gradient with the fused "
+                        "PPO-gradient kernel (default on; the autograd "
+                        "update is not ported yet)")
+    p.add_argument("--fused-update-packed", action="store_true",
+                   help="the packed-parameter update (not ported yet)")
+    p.add_argument("--fused-update-bf16", action="store_true",
+                   help="bf16 operands in the update kernel (not ported yet)")
     p.add_argument("--seed", type=int, default=13)
     p.add_argument("--eval-every", type=int, default=None)
     p.add_argument("--eval-episodes", type=int, default=None)
@@ -64,26 +78,7 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
-    # not ported yet: rejected in check_supported
-    p.add_argument("--population", type=int, default=0)
-    p.add_argument("--fused-update-packed", action="store_true")
-    p.add_argument("--fused-update-bf16", action="store_true")
-    p.add_argument("--gpus", type=int, default=1)
     return p.parse_args(argv)
-
-
-def check_supported(args) -> None:
-    missing = []
-    if args.population:
-        missing.append("--population")
-    if args.fused_update_packed:
-        missing.append("--fused-update-packed")
-    if args.fused_update_bf16:
-        missing.append("--fused-update-bf16")
-    if args.gpus != 1:
-        missing.append("--gpus (multi-GPU)")
-    if missing:
-        raise SystemExit(f"not ported yet: {', '.join(missing)}")
 
 
 def build_config(args) -> PPOConfig:
@@ -99,18 +94,20 @@ def build_config(args) -> PPOConfig:
               "eval_episodes": args.eval_episodes}
     overrides = {k: v for k, v in fields.items() if v is not None}
     overrides.update(seed=args.seed, anneal_lr=args.anneal_lr,
-                     fused_rollout=True, fused_update=True)
+                     fused_rollout=args.fused_rollout,
+                     fused_update=args.fused_update,
+                     fused_update_packed=args.fused_update_packed,
+                     fused_update_bf16=args.fused_update_bf16)
     return dataclasses.replace(cfg, **overrides)
 
 
 def run(args) -> List[Dict[str, float]]:
     """Train; returns the per-iteration metric rows it printed."""
-    check_supported(args)
     cfg = build_config(args)
     device = resolve_device(args.device)
     env_params = DEFAULT_PARAMS
-    state = learner.init_train_state(cfg, env_params, device)
     train_step = learner.make_train_step(cfg, env_params, device)
+    state = learner.init_train_state(cfg, env_params, device)
     if args.exact_eval:
         eval_fn = learner.make_exact_eval_fn(cfg, env_params, device=device)
     else:

@@ -4,9 +4,11 @@
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. build the CUDA kernels from acas2d_tpu_torch/csrc with nvcc (sm_90a);
-  2. the rollout kernel against its plain PyTorch version on the card,
-     B = 2048 envs, K = 16 steps, same seed, weights and state;
-  3. the PPO-gradient kernel against its plain version, N = 65,536 rows;
+  2. the rollout kernel against its plain PyTorch version, B = 2048 envs,
+     K = 16 steps, same seed, weights and state: the public wrapper on
+     tensors on the card against the same call on copies on the CPU;
+  3. the PPO-gradient kernel against its plain version the same way,
+     N = 65,536 rows, with the `tpu` preset's loss settings;
   4. the main path: `acas2d_tpu_torch.train` at the full `tpu` preset shape
      (2048 x 128, minibatch 65,536, 10 epochs) for 3 iterations, with the
      launch counters read around it (8 rollout and 40 gradient launches per
@@ -14,8 +16,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   5. exact evaluation (float64 env) of artifacts/ppo_tpu_e_polished_best.npz,
      100 episodes, held to its committed record;
   6. kernel and plain-version times from CUDA events, each kernel's bound,
-     the main-path iteration cut into rollout / GAE / update (host clock
-     around synchronised work), the card's name and power limit.
+     the main-path iteration cut into rollout / GAE / update (the learner's
+     train step with a phase hook that synchronises and reads the host
+     clock), the card's name and power limit.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -38,6 +41,7 @@ from acas2d_tpu_torch.models.actor_critic import (ActorCritic, N_PARAMS,
                                                   gaussian_log_prob)
 from acas2d_tpu_torch.ops import _cuda, policy_rollout, ppo_grads
 from acas2d_tpu_torch.ops import step_math as sm
+from acas2d_tpu_torch.ppo.config import tpu_default
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -47,10 +51,11 @@ N_MB = 65536                     # main-path minibatch
 ITERS = 3
 FLAGSHIP = "artifacts/ppo_tpu_e_polished_best.npz"
 FLAGSHIP_RECORD = {"mean_reward": 1252.72, "std_reward": 72.04, "goals": 100}
-# Tolerances, kernel vs plain version on the same card:
+# Tolerances, kernel on the card vs plain version on the CPU:
 #  rollout: the kernel sums each 64-wide dot in its own order and contracts
-#  multiply-adds (nvcc default), the plain version uses cuBLAS; over 16
-#  closed-loop steps float32 positions (~1e3 px) drift by a few ulps.
+#  multiply-adds (nvcc default), the plain version uses the CPU's BLAS and
+#  libm; over 16 closed-loop steps float32 positions (~1e3 px) drift by a
+#  few ulps.
 ROLLOUT_RTOL, ROLLOUT_ATOL = 1e-4, 1e-3
 #  gradients: 65,536-row float32 sums in another order; error relative to
 #  each parameter block's largest gradient.
@@ -117,25 +122,49 @@ def rollout_inputs(dev):
             params, 12345, 32, K)
 
 
-def phase_rollout(dev):
-    args = rollout_inputs(dev)
-    got = policy_rollout._rollout_cuda(*args)
-    want = policy_rollout._rollout_plain(*args)
-    torch.cuda.synchronize()
-    names = ("state", "steps", "obs", "obs_buf", "f32 buffers", "i32 buffers")
+def compare(tag, got, want, rtol, atol):
+    """Hold the kernel path's outputs (dict of CUDA tensors) against the
+    plain version's (dict of CPU tensors): integers exactly, floats to
+    atol + rtol * |want|.  Returns the largest float error."""
     max_err = 0.0
-    for name, g, w in zip(names, got, want):
-        if g.dtype == torch.int32:
+    for name in sorted(want):
+        g, w = got[name].cpu(), want[name]
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{tag} {name}: {g.shape} {g.dtype} vs {w.shape} {w.dtype}")
+        if not torch.is_floating_point(w):
             bad = int((g != w).sum())
-            print(f"[rollout] {name}: {bad} mismatches of {g.numel()}")
-            check(bad == 0, f"rollout {name} differs from the plain version")
+            print(f"[{tag}] {name}: {bad} mismatches of {g.numel()}")
+            check(bad == 0, f"{tag} {name} differs from the plain version")
             continue
         err = (g - w).abs()
         max_err = max(max_err, float(err.max()))
-        ok = bool((err <= ROLLOUT_ATOL + ROLLOUT_RTOL * w.abs()).all())
-        print(f"[rollout] {name}: max abs err {float(err.max()):.3e}")
-        check(ok, f"rollout {name} outside rtol {ROLLOUT_RTOL} atol {ROLLOUT_ATOL}")
-    dones = int(want[5][0].gt(0).sum())
+        ok = bool((err <= atol + rtol * w.abs()).all())
+        print(f"[{tag}] {name}: max abs err {float(err.max()):.3e}")
+        check(ok, f"{tag} {name} outside rtol {rtol} atol {atol}")
+    return max_err
+
+
+def on_cpu(tensors):
+    return {k: v.cpu() for k, v in tensors.items()}
+
+
+def phase_rollout(dev):
+    """The public wrapper on CUDA tensors (the kernel) against the same call
+    on copies on the CPU (the plain version): this also checks the wrapper's
+    state stacking, casts and the split of its outputs."""
+    args = rollout_inputs(dev)
+    _, _, st, steps, obs, params, seed, offset, k = args
+    state = dict(zip(policy_rollout.STATE_KEYS, st.unbind(0)), steps=steps)
+    got = policy_rollout.fused_policy_rollout(state, obs, params, seed,
+                                              offset, k)
+    want = policy_rollout.fused_policy_rollout(on_cpu(state), obs.cpu(),
+                                               params.cpu(), seed, offset, k)
+    torch.cuda.synchronize()
+    max_err = 0.0
+    for part, g, w in zip(("final", "buffers"), got, want):
+        max_err = max(max_err, compare(f"rollout {part}", g, w,
+                                       ROLLOUT_RTOL, ROLLOUT_ATOL))
+    dones = int(want[1]["dones"].gt(0).sum())
     print(f"[rollout] B={B} K={K}: {dones} episode ends in the launch")
     check(dones > 0, "the comparison should exercise respawns")
     return args, max_err
@@ -144,6 +173,8 @@ def phase_rollout(dev):
 # ------------------------------------------------------------------ phase 3
 
 def grads_inputs(dev):
+    """A main-path minibatch (N_MB rows, RAW advantages) whose ratios
+    straddle the clip band, and the params, on `dev`."""
     gen = torch.Generator().manual_seed(2)
     model = ActorCritic(generator=gen)
     obs = torch.randn(N_MB, OBS_DIM, generator=gen) * 0.3
@@ -152,36 +183,51 @@ def grads_inputs(dev):
         act = mean + torch.randn(N_MB, 1, generator=gen) * 0.7
         old_logp = (gaussian_log_prob(act, mean, log_std)
                     + torch.randn(N_MB, generator=gen) * 0.3)   # straddle the clip band
-    adv = torch.randn(N_MB, generator=gen)
+    adv = torch.randn(N_MB, generator=gen) * 3.0 + 0.5
     ret = torch.randn(N_MB, generator=gen)
     mb = torch.cat([obs, act, old_logp[:, None], value[:, None], adv[:, None],
                     ret[:, None]], 1)
-    data = ppo_grads.normalize_adv_column(mb).to(dev).contiguous()
-    c = ppo_grads._constants(N_MB, 0.2, 0.5)
-    return flatten(model).to(dev), data, c, 0.0
+    return flatten(model).to(dev), mb.to(dev).contiguous()
 
 
 def phase_grads(dev):
-    args = grads_inputs(dev)
-    g, s = ppo_grads._grads_cuda(*args)
-    w, ws = ppo_grads._grads_plain(*args)
-    torch.cuda.synchronize()
-    max_err = float((g - w).abs().max())
+    """The public wrapper on CUDA tensors (the kernel) against the same call
+    on the CPU (the plain version), with the `tpu` preset's loss settings
+    and once more with a non-zero ent_coef, whose sign enters the log-std
+    gradient.  Returns the kernel's own operands at the main-path setting
+    (advantages normalised as the wrapper does) for the timings."""
+    cfg = tpu_default()
+    params, mb = grads_inputs(dev)
     tower = (HIDDEN * OBS_DIM, HIDDEN, HIDDEN * HIDDEN, HIDDEN, HIDDEN, 1)
     sizes = list(tower) * 2 + [1]
     names = [f"{t}.{n}" for t in ("pi", "vf")
              for n in ("w1", "b1", "w2", "b2", "w_head", "b_head")] + ["log_std"]
-    for name, gb, wb in zip(names, g.split(sizes), w.split(sizes)):
-        rel = float((gb - wb).abs().max() / (wb.abs().max() + 1e-12))
-        print(f"[grads] {name}: rel err {rel:.3e}")
-        check(rel < GRAD_REL_TOL, f"gradient {name} rel err {rel}")
-    srel = ((s - ws).abs() / (ws.abs() + 1e-6)).tolist()
-    print(f"[grads] loss sums rel err {srel}")
-    check(max(srel) < GRAD_REL_TOL, "loss sums differ")
-    clip_frac = float(ws[3]) / N_MB
+    max_err = 0.0
+    for ent_coef in (cfg.ent_coef, 0.01):
+        kw = dict(clip_range=cfg.clip_range, vf_coef=cfg.vf_coef,
+                  ent_coef=ent_coef,
+                  normalize_advantage=cfg.normalize_advantage)
+        g, aux = ppo_grads.ppo_minibatch_grads(params, mb, **kw)
+        w, waux = ppo_grads.ppo_minibatch_grads(params.cpu(), mb.cpu(), **kw)
+        torch.cuda.synchronize()
+        g = g.cpu()
+        max_err = max(max_err, float((g - w).abs().max()))
+        for name, gb, wb in zip(names, g.split(sizes), w.split(sizes)):
+            rel = float((gb - wb).abs().max() / (wb.abs().max() + 1e-12))
+            print(f"[grads] ent_coef {ent_coef}: {name} rel err {rel:.3e}")
+            check(rel < GRAD_REL_TOL, f"gradient {name} rel err {rel}")
+        for key in sorted(waux):
+            a, b = float(aux[key]), float(waux[key])
+            rel = abs(a - b) / (abs(b) + 1e-6)
+            print(f"[grads] ent_coef {ent_coef}: {key} {a:.6g} vs {b:.6g} "
+                  f"(rel err {rel:.3e})")
+            check(rel < GRAD_REL_TOL, f"aux {key} differs")
+    clip_frac = float(waux["clip_fraction"])
     print(f"[grads] N={N_MB}: clip fraction {clip_frac:.3f}")
     check(0.05 < clip_frac < 0.95, "both clip regimes should be exercised")
-    return args, max_err
+    data = ppo_grads.normalize_adv_column(mb).contiguous()
+    consts = ppo_grads._constants(N_MB, cfg.clip_range, cfg.vf_coef)
+    return (params, data, consts, cfg.ent_coef), max_err
 
 
 # ------------------------------------------------------------------ phase 4
@@ -208,39 +254,29 @@ def phase_main_path():
 
 
 def phase_breakdown():
-    """One more main-path iteration cut at its three phases (host clock
-    around synchronised work, after a warm-up iteration): the fused rollout
-    (8 launches), GAE, and the update (40 gradient launches + Adam)."""
-    import dataclasses
-
+    """One more main-path iteration cut at its three phases: the learner's
+    own train step, with a hook that synchronises and reads the host clock
+    as each phase ends (after a warm-up iteration).  Phases: the fused
+    rollout (8 launches), GAE, and the update (40 gradient launches +
+    Adam)."""
+    from acas2d_tpu_torch import train
     from acas2d_tpu_torch.ppo import learner
-    from acas2d_tpu_torch.ppo.config import tpu_default
-    from acas2d_tpu_torch.ppo.gae import compute_gae
-    cfg = dataclasses.replace(tpu_default(), fused_rollout=True,
-                              fused_update=True)
+    cfg = train.build_config(train.parse_args(["--preset", "tpu"]))
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    train_step = learner.make_train_step(cfg, DEFAULT_PARAMS, "cuda",
+                                         on_phase=mark)
     state = learner.init_train_state(cfg, DEFAULT_PARAMS, "cuda")
-    model = ActorCritic(device="cuda")
-    opt = learner.Optimizer(cfg)
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     for _ in range(2):                 # the second pass is the one reported
-        (state, batch, last_value, _), roll = timed(
-            lambda: learner.collect_rollout_fused(model, state, cfg,
-                                                  DEFAULT_PARAMS))
-        (adv, ret), gae = timed(lambda: compute_gae(
-            batch.rewards, batch.values, batch.dones, last_value, cfg.gamma,
-            cfg.gae_lambda))
-        (params, opt_state, _), upd = timed(lambda: learner.ppo_update(
-            state.params, state.opt_state, opt, batch, adv, ret, cfg,
-            generator=state.generator))
-        state = state.replace(params=params, opt_state=opt_state)
-    ms = {"rollout": roll, "gae": gae, "update": upd}
+        marks.clear()
+        mark("start")
+        state, _ = train_step(state)
+    ms = {name: (t - t_prev) * 1e3
+          for (_, t_prev), (name, t) in zip(marks, marks[1:])}
     print(f"[breakdown] iteration phases (ms): {json.dumps(ms)}")
     return ms
 

@@ -35,7 +35,8 @@ def _rollout_args(B, K, dev, seed=7):
     gen = torch.Generator().manual_seed(seed)
     params = flatten(ActorCritic(generator=gen))
     params[-1] = -0.5
-    es, obs = vector.reset_batch(B, DEFAULT_PARAMS, gen, torch.float32)
+    es, obs = vector.reset_batch(B, DEFAULT_PARAMS, gen, torch.float32,
+                                  "cpu")
     steps = torch.randint(1, DEFAULT_PARAMS.max_steps + 1, (B,), generator=gen)
     st = torch.stack([es.px, es.py, es.ppsi, es.tx[:, 0], es.ty[:, 0],
                       es.tv[:, 0], es.tpsi[:, 0], es.total_reward])

@@ -27,14 +27,14 @@ from acas2d_tpu_torch.oracle import MersenneSpawner
 F64 = torch.float64
 
 
-def _reset_from(inits, params):
+def _reset_from(inits, params, device="cpu"):
     return core.reset_from(
         np.array([i.player_psi for i in inits]),
         np.stack([i.traffic_x for i in inits]),
         np.stack([i.traffic_y for i in inits]),
         np.stack([i.traffic_v for i in inits]),
         np.stack([i.traffic_psi for i in inits]),
-        np.array([i.num_traffic for i in inits]), params, F64)
+        np.array([i.num_traffic for i in inits]), params, F64, device)
 
 
 def _run_pair(action, n_episodes, bug_compat):
@@ -125,7 +125,7 @@ def test_autoreset_respawns_and_keeps_terminal_info():
     (SB3 DummyVecEnv semantics); respawns follow the spawn distributions."""
     p = tcfg.DEFAULT_PARAMS
     gen = torch.Generator().manual_seed(3)
-    state, obs = vector.reset_batch(16, p, gen, F64)
+    state, obs = vector.reset_batch(16, p, gen, F64, "cpu")
     ended = torch.zeros(16, dtype=torch.bool)
     for _ in range(800):                      # zero action ends every episode
         state, out = core.step_autoreset(state, torch.zeros(16), p, gen)
@@ -141,7 +141,7 @@ def test_autoreset_respawns_and_keeps_terminal_info():
 
 def test_spawn_distribution():
     p = tcfg.DEFAULT_PARAMS
-    s = core.spawn(4096, p, torch.Generator().manual_seed(0), F64)
+    s = core.spawn(4096, p, torch.Generator().manual_seed(0), F64, "cpu")
     bearing = 0.0     # the goal is level with the player spawn
     dpsi = (s.ppsi - bearing + 180) % 360 - 180
     assert dpsi.abs().max() <= p.player_initial_heading_lim
@@ -154,6 +154,27 @@ def test_spawn_distribution():
     head = torch.where(top, s.tpsi[:, 0] - 145, s.tpsi[:, 0] - 215)
     assert head.abs().max() <= p.traffic_initial_heading_lim
     assert (s.num_traffic == 1).all() and (s.steps == 0).all()
+
+
+_INIT = MersenneSpawner(tcfg.DEFAULT_PARAMS, seed=0).spawn_batch(2)
+_DEFAULT_DEVICE_CALLS = {
+    "spawn": lambda: core.spawn(4),
+    "reset": lambda: core.reset(4)[0],
+    "reset_batch": lambda: vector.reset_batch(4)[0],
+    "reset_from": lambda: _reset_from(_INIT, tcfg.DEFAULT_PARAMS, None)[0],
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_DEFAULT_DEVICE_CALLS))
+def test_env_entry_points_default_to_cuda(entry):
+    """Without a device argument the env's entry points run on CUDA, and
+    raise where there is none: they never drop to the CPU on their own."""
+    call = _DEFAULT_DEVICE_CALLS[entry]
+    if torch.cuda.is_available():
+        assert call().px.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_singular_kinematics_corners_are_finite():

@@ -51,7 +51,8 @@ def _t(x):
 
 @pytest.fixture(scope="module")
 def steps():
-    jcfg, cfg = JPPOConfig(**SHAPE), PPOConfig(**SHAPE)
+    # the port's update is always the fused kernel (its plain version here)
+    jcfg, cfg = JPPOConfig(**SHAPE), PPOConfig(**SHAPE, fused_update=True)
     model = JActorCritic()
     js = jlearner.init_train_state(jax.random.PRNGKey(5), model, jcfg, JP)
     # episodes part-way through, so that timeouts end some in 16 steps

@@ -4,7 +4,7 @@ epochs, 2 iterations, through the plain versions of both kernels.
 
 It prints one JSON line of metrics per iteration, every metric is finite,
 the first iteration is evaluated (sampled spawns or the Mersenne stream),
-flags the port does not implement yet are refused, and the default device
+options the port does not implement yet are refused, and the default device
 is CUDA."""
 
 import json
@@ -36,12 +36,20 @@ def test_driver_prints_one_finite_row_per_iteration(exact_eval, capsys):
     assert 0.0 <= rows[0]["eval_goal_rate"] <= 1.0
 
 
-@pytest.mark.parametrize("flag", [["--population", "4"],
-                                  ["--fused-update-packed"],
-                                  ["--fused-update-bf16"], ["--gpus", "2"]])
+@pytest.mark.parametrize("flag", [["--fused-update-packed"],
+                                  ["--fused-update-bf16"],
+                                  ["--no-fused-rollout"],
+                                  ["--no-fused-update"]])
 def test_driver_refuses_unported_flags(flag):
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         train.run(train.parse_args(TINY + flag))
+
+
+@pytest.mark.parametrize("flag", [["--population", "4"], ["--gpus", "2"]])
+def test_driver_does_not_know_unported_modes(flag, capsys):
+    with pytest.raises(SystemExit):
+        train.parse_args(TINY + flag)
+    assert "unrecognized arguments" in capsys.readouterr().err
 
 
 def test_driver_needs_cuda_unless_asked_for_cpu():
