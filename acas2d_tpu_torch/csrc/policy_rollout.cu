@@ -2,7 +2,9 @@
 // forward, gaussian sampling and the environment step, in one launch.
 //
 // Replaces the TPU kernel acas2d_tpu/ops/pallas_policy.py:67
-// (fused_policy_rollout_kernel, reached through fused_policy_rollout :375).
+// (fused_policy_rollout_kernel), reached through fused_policy_rollout :375
+// (one policy) and fused_policy_rollout_members :433 (P member policies,
+// each rolling its own B envs, in one launch).
 // Plain version: acas2d_tpu_torch/ops/policy_rollout.py:_rollout_plain.
 //
 // What it computes, per env and step (the Pallas kernel's semantics): the
@@ -10,19 +12,25 @@
 // the log-prob of the raw sample, clip and scale to the lateral
 // acceleration, integration, geometry with the bug_compat quirks, shaped
 // reward, outcome codes 3 > 2 > 1, a masked respawn on salts 1-3, and the
-// next observation from the live a_lat.  The RNG streams equal the TPU
-// kernel's: env e is lane e % 1024 of program e / 1024.
+// next observation from the live a_lat.  The envs of all members are one
+// member-major index space, e = m * B + (env of member m).  The RNG streams
+// equal the TPU kernel's: its member grid numbers env e of member m as lane
+// e % 1024 of program m * G + e / 1024 (G = B / 1024), which is the global
+// index hashed here whenever B % 1024 == 0 (always at P == 1).
 //
 // What bounds it on an H100: the MLP is 18,688 flop per env-step and the
 // env step is a few hundred more, against 64 bytes of buffers written per
 // env-step, so the work is float32 operations on the CUDA cores, not bytes.
 // Design: one thread per env with the state in registers and a loop over
-// the K steps; both towers' weights (38 KB) in shared memory, read at one
+// the K steps; grid (env blocks of one member, members), so a block never
+// straddles two members and loads only its own member's weights and
+// log_std; both towers' weights (38 KB) in shared memory, read at one
 // address by all threads of a warp (broadcast, float4-wide); each tower on
 // its own — h1 (64 floats) in registers, then the layer-2 neurons one at a
 // time, each fed straight into the head's dot product — so the TPU kernel's
-// 128x128 block-diagonal product is never formed.  At B = 2048 this is 16
-// blocks of 128 threads on 132 SMs: latency-bound; recorded in PERF.md.
+// 128x128 block-diagonal product is never formed.  At B = 2048, P = 1 this
+// is 16 blocks of 128 threads on 132 SMs: latency-bound; at the population
+// shape (P = 32, B = 1024) 256 blocks.  Times in PERF.md.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,6 +41,7 @@ namespace {
 constexpr int H = 64;
 constexpr int OBS = 8;
 constexpr int TOWER = H * OBS + H + H * H + H + H + 1;  // 4801 floats
+constexpr int N_PARAMS = 2 * TOWER + 1;           // 9603: + log_std
 constexpr int TOWER_SMEM = 4804;  // tower stride in shared memory (16-B aligned)
 constexpr int THREADS = 128;
 
@@ -76,26 +85,30 @@ __global__ void __launch_bounds__(THREADS) policy_rollout_kernel(
     float* __restrict__ obs_out, float* __restrict__ obs_buf,
     float* __restrict__ fbuf, int* __restrict__ ibuf) {
   __shared__ __align__(16) float w[2 * TOWER_SMEM];
+  const int member = blockIdx.y;
+  const float* mp = params + (size_t)member * N_PARAMS;
   for (int i = threadIdx.x; i < TOWER; i += THREADS) {
-    w[i] = params[i];
-    w[TOWER_SMEM + i] = params[TOWER + i];
+    w[i] = mp[i];
+    w[TOWER_SMEM + i] = mp[TOWER + i];
   }
   __syncthreads();
 
-  const int e = blockIdx.x * THREADS + threadIdx.x;
-  if (e >= B) return;
+  const int el = blockIdx.x * THREADS + threadIdx.x;  // env of this member
+  if (el >= B) return;
+  const int e = member * B + el;                      // global env index
+  const int PB = gridDim.y * B;
 
-  const float log_std = fminf(fmaxf(params[2 * TOWER], -4.0f), 2.0f);
+  const float log_std = fminf(fmaxf(mp[2 * TOWER], -4.0f), 2.0f);
   const float sigma = expf(log_std);
   const float logp_const = -log_std - c.half_log_2pi;
   const uint32_t base = seed * 0x9E3779B9u
                       + (uint32_t)(e >> 10) * 0xC2B2AE35u
                       + (uint32_t)(e & 1023) * 0x27D4EB2Fu;
 
-  float px = st_in[0 * B + e], py = st_in[1 * B + e];
-  float psi = st_in[2 * B + e], tx = st_in[3 * B + e];
-  float ty = st_in[4 * B + e], tv = st_in[5 * B + e];
-  float tpsi = st_in[6 * B + e], tot = st_in[7 * B + e];
+  float px = st_in[0 * PB + e], py = st_in[1 * PB + e];
+  float psi = st_in[2 * PB + e], tx = st_in[3 * PB + e];
+  float ty = st_in[4 * PB + e], tv = st_in[5 * PB + e];
+  float tpsi = st_in[6 * PB + e], tot = st_in[7 * PB + e];
   int steps = steps_in[e];
   float tcos = cosf(tpsi * acas::kDeg2Rad);
   float tsin = sinf(tpsi * acas::kDeg2Rad);
@@ -103,11 +116,11 @@ __global__ void __launch_bounds__(THREADS) policy_rollout_kernel(
 #pragma unroll
   for (int f = 0; f < OBS; ++f) obs[f] = obs_in[(size_t)e * OBS + f];
   float a_live = 0.0f;
-  const size_t KB = (size_t)K * B;
+  const size_t KB = (size_t)K * PB;
 
   for (int i = 0; i < K; ++i) {
     const int step_id = step_offset + i;
-    const size_t kb = (size_t)i * B + e;
+    const size_t kb = (size_t)i * PB + e;
 
     // policy forward + gaussian sample (SB3 collect_rollouts)
     const float mean = tower_out(w, obs);
@@ -191,15 +204,15 @@ __global__ void __launch_bounds__(THREADS) policy_rollout_kernel(
     acas::build_obs(c, steps, psi, g, obs);
   }
 
-  st_out[0 * B + e] = px;
-  st_out[1 * B + e] = py;
-  st_out[2 * B + e] = psi;
-  st_out[3 * B + e] = tx;
-  st_out[4 * B + e] = ty;
-  st_out[5 * B + e] = tv;
-  st_out[6 * B + e] = tpsi;
-  st_out[7 * B + e] = tot;
-  st_out[8 * B + e] = a_live;
+  st_out[0 * PB + e] = px;
+  st_out[1 * PB + e] = py;
+  st_out[2 * PB + e] = psi;
+  st_out[3 * PB + e] = tx;
+  st_out[4 * PB + e] = ty;
+  st_out[5 * PB + e] = tv;
+  st_out[6 * PB + e] = tpsi;
+  st_out[7 * PB + e] = tot;
+  st_out[8 * PB + e] = a_live;
   steps_out[e] = steps;
 #pragma unroll
   for (int f = 0; f < OBS; ++f) obs_out[(size_t)e * OBS + f] = obs[f];
@@ -213,18 +226,20 @@ const char* acas_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// st_in (8, B): px, py, psi, tx, ty, tv, tpsi, total_reward; st_out (9, B)
-// adds the live a_lat.  obs_buf (K, B, 8); fbuf (6, K, B): action, logp,
-// value, reward, done, episode_return; ibuf (2, K, B): episode_steps,
-// outcome.  Returns the launch's cudaGetLastError().
-int acas_policy_rollout(const acas::RolloutConsts* c, int B, int K, int seed,
-                        int step_offset, const float* params,
+// P members of B envs each, member-major (PB = P * B).  params (P, 9603);
+// st_in (8, PB): px, py, psi, tx, ty, tv, tpsi, total_reward; st_out (9, PB)
+// adds the live a_lat.  obs_in / obs_out (PB, 8); obs_buf (K, PB, 8);
+// fbuf (6, K, PB): action, logp, value, reward, done, episode_return;
+// ibuf (2, K, PB): episode_steps, outcome.  Returns the launch's
+// cudaGetLastError().
+int acas_policy_rollout(const acas::RolloutConsts* c, int P, int B, int K,
+                        int seed, int step_offset, const float* params,
                         const float* st_in, const int* steps_in,
                         const float* obs_in, float* st_out, int* steps_out,
                         float* obs_out, float* obs_buf, float* fbuf,
                         int* ibuf, void* stream) {
-  const int blocks = (B + THREADS - 1) / THREADS;
-  policy_rollout_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((B + THREADS - 1) / THREADS, P);
+  policy_rollout_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       *c, B, K, (uint32_t)seed, step_offset, params, st_in, steps_in, obs_in,
       st_out, steps_out, obs_out, obs_buf, fbuf, ibuf);
   return (int)cudaGetLastError();

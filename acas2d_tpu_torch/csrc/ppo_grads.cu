@@ -2,7 +2,9 @@
 // clipped PPO loss, with the loss statistics, in two deterministic passes.
 //
 // Replaces the TPU kernel acas2d_tpu/ops/pallas_update.py:60
-// (_ppo_grad_kernel, reached through ppo_minibatch_grads :345), f32 operands.
+// (_ppo_grad_kernel), f32 operands, reached through ppo_minibatch_grads :345
+// (one policy) and, vmapped over a population's members,
+// ppo_minibatch_grads_packed :389 (P members' minibatches in one launch).
 // Plain version: acas2d_tpu_torch/ops/ppo_grads.py:_grads_plain.
 //
 // What it computes (the Pallas kernel's branch structure): the two towers'
@@ -17,8 +19,9 @@
 // backward about twice that) against 52 bytes read per row, so float32
 // operations on the CUDA cores (no TF32, no bf16).
 // Design: blocks run in no order, so the TPU kernel's sequential
-// accumulation becomes two passes.  Pass 1: block (b, tower) takes a
-// contiguous range of rows of one tower (the towers are independent: the
+// accumulation becomes two passes.  Pass 1: block (b, member * 2 + tower)
+// takes a contiguous range of one member's rows for one tower (the
+// members are independent, and so are the towers: the
 // policy tower needs only the mean, the value tower only the value) and
 // walks it in tiles of 64 rows.  Per tile the activations live in shared
 // memory, feature-major (h1, h2 -> e2, e1); the weight gradients are small
@@ -27,7 +30,10 @@
 // entry).  Each block writes its partial sums of the 4,801 tower gradients
 // and the loss sums.  Pass 2 sums the partials of every entry in block
 // order: the result is deterministic, with no float atomics.  Only the real
-// 64x64 blocks are computed; the TPU kernel's off-diagonal packing is not.
+// 64x64 blocks are computed; the TPU kernel's off-diagonal packing is not,
+// so the packed path's masked gradients are exactly the flat vector.  The
+// wrapper bounds the blocks of a launch (about 256 over all members), so
+// the partials stay small at any population size.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,6 +43,7 @@ constexpr int H = 64;
 constexpr int OBS = 8;
 constexpr int NCOL = 13;  // packed row: obs(8), action, logp, value, adv, ret
 constexpr int TOWER = H * OBS + H + H * H + H + H + 1;  // 4801
+constexpr int N_PARAMS = 2 * TOWER + 1;                 // 9603: + log_std
 constexpr int NSTAT = 5;  // policy loss, value loss, kl, clip count, dls
 constexpr int REC = TOWER + NSTAT;                      // partial record
 constexpr int O_B1 = H * OBS, O_W2 = O_B1 + H, O_B2 = O_W2 + H * H;
@@ -58,7 +65,10 @@ __global__ void __launch_bounds__(THREADS) grad_partials_kernel(
     int rows_per_block, const float* __restrict__ params,
     float* __restrict__ partial) {
   extern __shared__ float sm[];
-  const int tower = blockIdx.y;
+  const int member = blockIdx.y >> 1;
+  const int tower = blockIdx.y & 1;
+  params += (size_t)member * N_PARAMS;
+  data += (size_t)member * n * NCOL;
   const int tid = threadIdx.x;
   float* w1 = sm;                    // (64, 8)
   float* b1 = w1 + O_B1;
@@ -223,7 +233,7 @@ __global__ void __launch_bounds__(THREADS) grad_partials_kernel(
     __syncthreads();
   }
 
-  float* rec = partial + ((size_t)tower * gridDim.x + blockIdx.x) * REC;
+  float* rec = partial + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * REC;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -250,27 +260,32 @@ __global__ void __launch_bounds__(THREADS) grad_partials_kernel(
   }
 }
 
-// grads (2 * TOWER + 1): both towers' gradients in partial-record order,
-// then d log_std - ent_coef; sums (4): policy loss, value loss, kl, clips.
-__global__ void grad_reduce_kernel(const float* __restrict__ partial,
+// Per member: grads (2 * TOWER + 1), both towers' gradients in
+// partial-record order, then d log_std - ent_coef; sums (4): policy loss,
+// value loss, kl, clips.  One thread per output entry of all P members.
+__global__ void grad_reduce_kernel(const float* __restrict__ partial, int P,
                                    int nblocks, float ent_coef,
                                    float* __restrict__ grads,
                                    float* __restrict__ sums) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int PER = 2 * TOWER + NSTAT;
+  const int gi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gi >= P * PER) return;
+  const int m = gi / PER, i = gi - m * PER;
+  const float* mp = partial + (size_t)m * 2 * nblocks * REC;
   if (i < 2 * TOWER) {
     const int tower = i / TOWER, o = i - tower * TOWER;
-    const float* p = partial + (size_t)tower * nblocks * REC + o;
+    const float* p = mp + (size_t)tower * nblocks * REC + o;
     float s = 0.0f;
     for (int b = 0; b < nblocks; ++b) s += p[(size_t)b * REC];
-    grads[i] = s;
-  } else if (i < 2 * TOWER + NSTAT) {
+    grads[(size_t)m * N_PARAMS + i] = s;
+  } else {
     const int q = i - 2 * TOWER;
     float s = 0.0f;
     for (int tower = 0; tower < 2; ++tower)
       for (int b = 0; b < nblocks; ++b)
-        s += partial[((size_t)tower * nblocks + b) * REC + TOWER + q];
-    if (q == NSTAT - 1) grads[2 * TOWER] = s - ent_coef;
-    else sums[q] = s;
+        s += mp[((size_t)tower * nblocks + b) * REC + TOWER + q];
+    if (q == NSTAT - 1) grads[(size_t)m * N_PARAMS + 2 * TOWER] = s - ent_coef;
+    else sums[m * 4 + q] = s;
   }
 }
 
@@ -283,30 +298,34 @@ const char* acas_error_string(int code) {
 }
 
 // Scratch floats the wrapper allocates for `partial`.
-int acas_ppo_grads_partial_floats(int nblocks) { return 2 * nblocks * REC; }
+long long acas_ppo_grads_partial_floats(int P, int nblocks) {
+  return (long long)P * 2 * nblocks * REC;
+}
 
-// data (n, 13) row-major with the advantage column normalised; params
-// (2 * TOWER + 1) in the port's flat layout; partial (2, nblocks, REC).
-// Returns the launches' cudaGetLastError().
+// P members: data (P, n, 13) row-major with each member's advantage column
+// normalised; params (P, 9603) in the port's flat layout; partial
+// (P, 2, nblocks, REC); grads (P, 9603); sums (P, 4).  nblocks blocks per
+// member and tower, rows_per_block rows each.  Returns the launches'
+// cudaGetLastError().
 int acas_ppo_grads(float inv_n, float eps, float lo, float hi,
                    float dvalue_scale, float log_2pi, float ent_coef,
-                   const float* data, int n, int rows_per_block, int nblocks,
-                   const float* params, float* partial, float* grads,
-                   float* sums, void* stream) {
+                   const float* data, int P, int n, int rows_per_block,
+                   int nblocks, const float* params, float* partial,
+                   float* grads, float* sums, void* stream) {
   const size_t smem = SMEM_FLOATS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       grad_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const GradConsts c{inv_n, eps, lo, hi, dvalue_scale, log_2pi};
-  grad_partials_kernel<<<dim3(nblocks, 2), THREADS, smem,
+  grad_partials_kernel<<<dim3(nblocks, 2 * P), THREADS, smem,
                          (cudaStream_t)stream>>>(c, data, n, rows_per_block,
                                                  params, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int total = 2 * TOWER + NSTAT;
+  const int total = P * (2 * TOWER + NSTAT);
   grad_reduce_kernel<<<(total + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      partial, nblocks, ent_coef, grads, sums);
+      partial, P, nblocks, ent_coef, grads, sums);
   return (int)cudaGetLastError();
 }
 

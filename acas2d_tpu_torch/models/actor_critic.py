@@ -171,3 +171,28 @@ def tower_forward(x, tower):
     h1 = torch.tanh(F.linear(x, w1, b1))
     h2 = torch.tanh(F.linear(h1, w2, b2))
     return h1, h2, h2 @ wh + bh
+
+
+def members_forward(params: torch.Tensor, obs: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """P member policies, each on its own observations, as batched matrix
+    products: params (P, N_PARAMS), obs (P, N, 8) -> (action mean (P, N),
+    value (P, N)).  (The JAX population vmaps `model.apply` over members.)"""
+    P = params.shape[0]
+    outs, i = [], 0
+    for _ in range(2):
+        w1 = params[:, i:i + HIDDEN * OBS_DIM].unflatten(-1, (HIDDEN, OBS_DIM))
+        i += HIDDEN * OBS_DIM
+        b1 = params[:, i:i + HIDDEN]
+        i += HIDDEN
+        w2 = params[:, i:i + HIDDEN * HIDDEN].unflatten(-1, (HIDDEN, HIDDEN))
+        i += HIDDEN * HIDDEN
+        b2 = params[:, i:i + HIDDEN]
+        i += HIDDEN
+        wh = params[:, i:i + HIDDEN]
+        bh = params[:, i + HIDDEN:i + HIDDEN + 1]
+        i += HIDDEN + 1
+        h1 = torch.tanh(torch.baddbmm(b1[:, None], obs, w1.transpose(1, 2)))
+        h2 = torch.tanh(torch.baddbmm(b2[:, None], h1, w2.transpose(1, 2)))
+        outs.append(torch.bmm(h2, wh.reshape(P, HIDDEN, 1))[..., 0] + bh)
+    return outs[0], outs[1]

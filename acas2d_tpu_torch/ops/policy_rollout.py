@@ -8,10 +8,16 @@ outcome codes, masked respawn) and the next observation.  The RNG streams
 are the Pallas kernel's, so for the same seed, weights and state the port
 and the TPU kernel draw the same samples.
 
-`fused_policy_rollout` launches the CUDA kernel (`csrc/policy_rollout.cu`)
-for CUDA tensors and runs the plain version (`_rollout_plain`, the same
-per-step arithmetic in torch over the batch) for CPU tensors.  There is no
-fallback between the two.
+`fused_policy_rollout_members` rolls P member policies, each on its own
+B envs, in one launch (counterpart of `pallas_policy.py:433-501`): the envs
+are one member-major index space of P * B envs, and member m's envs use
+member m's weights.  The solo `fused_policy_rollout` is its P = 1 call.
+
+The wrapper launches the CUDA kernel (`csrc/policy_rollout.cu`) for CUDA
+tensors and runs the plain version (`_rollout_plain`, the same per-step
+arithmetic in torch over the batch) for CPU tensors.  There is no fallback
+between the two.  `fused_policy_rollout_members.launches` counts the
+kernel's launches, solo or member.
 """
 
 from __future__ import annotations
@@ -42,30 +48,40 @@ def _rollout_plain(c: Dict[str, float], max_steps: int, st: torch.Tensor,
                    steps: torch.Tensor, obs: torch.Tensor,
                    params: torch.Tensor, seed: int, step_offset: int, K: int):
     """The kernel's arithmetic in torch over the batch.  Same operands and
-    outputs as the kernel: st (8, B), steps (B,) int32, obs (B, 8) ->
-    (st_out (9, B), steps_out, obs_out, obs_buf (K, B, 8),
-     fbuf (6, K, B), ibuf (2, K, B))."""
-    B = st.shape[1]
+    outputs as the kernel, for P members of B envs (PB = P * B, member
+    major): params (P, N_PARAMS), st (8, PB), steps (PB,) int32,
+    obs (PB, 8) -> (st_out (9, PB), steps_out, obs_out, obs_buf (K, PB, 8),
+    fbuf (6, K, PB), ibuf (2, K, PB)).  Each member's MLP runs on its own
+    envs with its own weights."""
+    P, PB = params.shape[0], st.shape[1]
+    B = PB // P
     dev = st.device
-    pi, vf, log_std = split_flat(params)
-    ls = torch.clamp(log_std[0], -4.0, 2.0)
+    towers = [split_flat(p) for p in params]
+    ls = torch.clamp(params[:, -1], -4.0, 2.0).repeat_interleave(B)
     sigma = torch.exp(ls)
     logp_const = -ls - c["half_log_2pi"]
-    base = sm.rng_base(seed, torch.arange(B, device=dev))
+    base = sm.rng_base(seed, torch.arange(PB, device=dev))
+
+    def policy(x):
+        """(mean, value), each (PB,): member m's towers on its envs."""
+        xs = x.reshape(P, B, 8)
+        mean = [tower_forward(xm, pi)[2] for xm, (pi, _, _) in zip(xs, towers)]
+        value = [tower_forward(xm, vf)[2] for xm, (_, vf, _) in zip(xs, towers)]
+        return torch.cat(mean), torch.cat(value)
+
     v, dt = c["v"], c["dt"]
 
     px, py, psi, tx, ty, tv, tpsi, tot = st.unbind(0)
     tcos = torch.cos(tpsi * sm.DEG2RAD)
     tsin = torch.sin(tpsi * sm.DEG2RAD)
-    obs_buf = torch.empty(K, B, 8, dtype=torch.float32, device=dev)
-    fbuf = torch.empty(6, K, B, dtype=torch.float32, device=dev)
-    ibuf = torch.empty(2, K, B, dtype=torch.int32, device=dev)
+    obs_buf = torch.empty(K, PB, 8, dtype=torch.float32, device=dev)
+    fbuf = torch.empty(6, K, PB, dtype=torch.float32, device=dev)
+    ibuf = torch.empty(2, K, PB, dtype=torch.int32, device=dev)
     a_live = torch.zeros_like(px)
     for i in range(K):
         step_id = step_offset + i
         # policy forward + gaussian sample (SB3 collect_rollouts)
-        mean = tower_forward(obs, pi)[2]
-        value = tower_forward(obs, vf)[2]
+        mean, value = policy(obs)
         u1 = sm._u01_hash(base, step_id, 4)
         u2 = sm._u01_hash(base, step_id, 5)
         z = (torch.sqrt(-2.0 * torch.log(torch.clamp(1.0 - u1, min=sm.f32(1e-12))))
@@ -141,34 +157,75 @@ def _rollout_cuda(c: Dict[str, float], max_steps: int, st: torch.Tensor,
                   steps: torch.Tensor, obs: torch.Tensor,
                   params: torch.Tensor, seed: int, step_offset: int, K: int):
     """Launch csrc/policy_rollout.cu; same operands/outputs as _rollout_plain."""
-    B = st.shape[1]
-    _cuda.require(st, "state", torch.float32, (8, B))
-    _cuda.require(steps, "steps", torch.int32, (B,))
-    _cuda.require(obs, "obs", torch.float32, (B, 8))
-    _cuda.require(params, "params", torch.float32, (N_PARAMS,))
+    P, PB = params.shape[0], st.shape[1]
+    _cuda.require(params, "params", torch.float32, (P, N_PARAMS))
+    _cuda.require(st, "state", torch.float32, (8, PB))
+    if PB % P:
+        raise ValueError(f"{PB} envs do not split over {P} members")
+    _cuda.require(steps, "steps", torch.int32, (PB,))
+    _cuda.require(obs, "obs", torch.float32, (PB, 8))
     lib = _cuda.load("policy_rollout")
     fn = lib.acas_policy_rollout
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.POINTER(_RolloutConsts)] + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.POINTER(_RolloutConsts)] + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 11)
     dev = st.device
-    st_out = torch.empty(9, B, dtype=torch.float32, device=dev)
-    steps_out = torch.empty(B, dtype=torch.int32, device=dev)
-    obs_out = torch.empty(B, 8, dtype=torch.float32, device=dev)
-    obs_buf = torch.empty(K, B, 8, dtype=torch.float32, device=dev)
-    fbuf = torch.empty(6, K, B, dtype=torch.float32, device=dev)
-    ibuf = torch.empty(2, K, B, dtype=torch.int32, device=dev)
+    st_out = torch.empty(9, PB, dtype=torch.float32, device=dev)
+    steps_out = torch.empty(PB, dtype=torch.int32, device=dev)
+    obs_out = torch.empty(PB, 8, dtype=torch.float32, device=dev)
+    obs_buf = torch.empty(K, PB, 8, dtype=torch.float32, device=dev)
+    fbuf = torch.empty(6, K, PB, dtype=torch.float32, device=dev)
+    ibuf = torch.empty(2, K, PB, dtype=torch.int32, device=dev)
     consts = _RolloutConsts(**c, max_steps=max_steps)
     # the kernel takes the seed's int32 bit pattern
     seed32 = ((int(seed) + (1 << 31)) % (1 << 32)) - (1 << 31)
-    rc = fn(ctypes.byref(consts), B, K, seed32, int(step_offset),
+    rc = fn(ctypes.byref(consts), P, PB // P, K, seed32, int(step_offset),
             _cuda.ptr(params), _cuda.ptr(st), _cuda.ptr(steps),
             _cuda.ptr(obs), _cuda.ptr(st_out), _cuda.ptr(steps_out),
             _cuda.ptr(obs_out), _cuda.ptr(obs_buf), _cuda.ptr(fbuf),
             _cuda.ptr(ibuf), _cuda.stream_of(st))
     _cuda.check(rc, lib, "policy_rollout launch")
-    fused_policy_rollout.launches += 1
+    fused_policy_rollout_members.launches += 1
     return st_out, steps_out, obs_out, obs_buf, fbuf, ibuf
+
+
+def fused_policy_rollout_members(state: Dict[str, torch.Tensor],
+                                 obs: torch.Tensor, params: torch.Tensor,
+                                 seed: int, step_offset: int, K: int,
+                                 env_params: EnvParams = DEFAULT_PARAMS
+                                 ) -> Tuple[Dict[str, torch.Tensor],
+                                            Dict[str, torch.Tensor]]:
+    """Run K fused policy+env autoreset steps for P member policies, each on
+    its own B envs, in one launch.
+
+    `state`: (P, B) float32 tensors px, py, psi, tx, ty, tv, tpsi,
+    total_reward and int32 steps (one traffic aircraft); `obs` (P, B, 8);
+    `params`: (P, N_PARAMS) flat vectors, member m's in row m.  Returns
+    (final state with (P, B) leaves, 'obs' (P, B, 8) and 'pa_lat' — the
+    last applied lateral acceleration, 0 for envs respawned on their final
+    step —, buffers with time-major (K, P, B) leaves and obs (K, P, B, 8)).
+    The JAX wrapper returns its buffers member-major, (P, K, B); the port
+    keeps the kernel's layout, which is the learner's.  `step_offset`
+    advances the per-step RNG counter across chunked launches.
+    """
+    P, B = state["px"].shape
+    c = sm.kernel_constants(env_params)
+    st = torch.stack([state[k].to(torch.float32).reshape(P * B)
+                      for k in STATE_KEYS])
+    steps = state["steps"].to(torch.int32).reshape(P * B).contiguous()
+    obs = obs.to(torch.float32).reshape(P * B, 8).contiguous()
+    params = params.contiguous()
+    fn = _rollout_cuda if st.is_cuda else _rollout_plain
+    st_out, steps_out, obs_out, obs_buf, fbuf, ibuf = fn(
+        c, env_params.max_steps, st, steps, obs, params, seed, step_offset, K)
+    st_out = st_out.view(9, P, B)
+    final = dict(zip(STATE_KEYS, st_out[:8]))
+    final.update(steps=steps_out.view(P, B), obs=obs_out.view(P, B, 8),
+                 pa_lat=st_out[8])
+    buffers = dict(zip(BUFFER_F32, fbuf.view(6, K, P, B)))
+    buffers.update(zip(BUFFER_I32, ibuf.view(2, K, P, B)))
+    buffers["obs"] = obs_buf.view(K, P, B, 8)
+    return final, buffers
 
 
 def fused_policy_rollout(state: Dict[str, torch.Tensor], obs: torch.Tensor,
@@ -176,29 +233,20 @@ def fused_policy_rollout(state: Dict[str, torch.Tensor], obs: torch.Tensor,
                          K: int, env_params: EnvParams = DEFAULT_PARAMS
                          ) -> Tuple[Dict[str, torch.Tensor],
                                     Dict[str, torch.Tensor]]:
-    """Run K fused policy+env autoreset steps.
+    """Run K fused policy+env autoreset steps of one policy: the P = 1 call
+    of `fused_policy_rollout_members`.
 
     `state`: (B,) float32 tensors px, py, psi, tx, ty, tv, tpsi,
     total_reward and int32 steps (one traffic aircraft); `obs` (B, 8);
     `params`: the (N_PARAMS,) flat vector of `models.actor_critic`.
-    Returns (final state with 'obs' (B, 8) and 'pa_lat' — the last applied
-    lateral acceleration, 0 for envs respawned on their final step —,
-    buffers with (K, B) leaves and obs (K, B, 8)).  `step_offset` advances
-    the per-step RNG counter across chunked launches.
+    Returns (final state with (B,) leaves, 'obs' (B, 8) and 'pa_lat',
+    buffers with (K, B) leaves and obs (K, B, 8)).
     """
-    c = sm.kernel_constants(env_params)
-    st = torch.stack([state[k].to(torch.float32) for k in STATE_KEYS])
-    steps = state["steps"].to(torch.int32).contiguous()
-    obs = obs.to(torch.float32).contiguous()
-    fn = _rollout_cuda if st.is_cuda else _rollout_plain
-    st_out, steps_out, obs_out, obs_buf, fbuf, ibuf = fn(
-        c, env_params.max_steps, st, steps, obs, params, seed, step_offset, K)
-    final = dict(zip(STATE_KEYS, st_out[:8]))
-    final.update(steps=steps_out, obs=obs_out, pa_lat=st_out[8])
-    buffers = dict(zip(BUFFER_F32, fbuf))
-    buffers.update(zip(BUFFER_I32, ibuf))
-    buffers["obs"] = obs_buf
-    return final, buffers
+    final, buffers = fused_policy_rollout_members(
+        {k: v[None] for k, v in state.items()}, obs[None], params[None],
+        seed, step_offset, K, env_params)
+    return ({k: v[0] for k, v in final.items()},
+            {k: v[:, 0] for k, v in buffers.items()})
 
 
-fused_policy_rollout.launches = 0
+fused_policy_rollout_members.launches = 0

@@ -12,9 +12,21 @@ gradient is straight-through its clamp, and the loss's `-ent_coef * entropy`
 term adds `-ent_coef` to it.  SB3's per-minibatch advantage normalisation
 runs before the kernel (`normalize_adv_column`).
 
-`ppo_minibatch_grads` launches the CUDA kernel (`csrc/ppo_grads.cu`) for
-CUDA tensors and runs the plain version (`_grads_plain`, the same forward and
-backward in torch) for CPU tensors.  There is no fallback between the two.
+`ppo_minibatch_grads_members` computes the gradients of P member policies,
+each on its own minibatch, in one launch: the port's counterpart of the JAX
+population's `vmap(ppo_minibatch_grads_packed)` (`pallas_update.py:389`,
+`population.py:76-94`).  The packed 7-leaf tree there exists to keep the
+TPU kernel's block-diagonal operands across the update loop, with the
+off-diagonal gradients masked to zero; the port's flat vector already is
+the kernel's operand and holds exactly the unmasked entries, so the packed
+update and the fused update are the same computation here.  The solo
+`ppo_minibatch_grads` is its P = 1 call.
+
+The wrapper launches the CUDA kernel (`csrc/ppo_grads.cu`) for CUDA tensors
+and runs the plain version (`_grads_plain`, the same forward and backward
+in torch, member by member) for CPU tensors.  There is no fallback between
+the two.  `ppo_minibatch_grads_members.launches` counts the kernel's
+launches, solo or member.
 """
 
 from __future__ import annotations
@@ -36,16 +48,21 @@ LOG_2PI = math.log(2.0 * math.pi)
 _OBS, _ACT, _LOGP, _VAL, _ADV, _RET = 0, 8, 9, 10, 11, 12
 N_COLS = 13
 TILE_ROWS = 64        # rows per tile of the CUDA kernel's first pass
-TARGET_BLOCKS = 128   # first-pass blocks per tower
+# first-pass blocks per tower, shared by all members of a launch: a solo
+# launch gets 128 per tower, a 32-member launch 4 per member and tower, so
+# the partials pass 2 reads stay ~5 MB at any population size
+TARGET_BLOCKS = 128
 
 
 def normalize_adv_column(mb_data: torch.Tensor) -> torch.Tensor:
     """SB3's per-minibatch advantage normalisation on the packed matrix's
-    advantage column (pallas_update.py:290-297).  The std is the
-    population std (ddof 0), as `jnp.std`."""
-    adv = mb_data[:, _ADV]
+    advantage column (pallas_update.py:290-297), over the rows of each
+    (..., N, 13) minibatch: per member for a population's (P, N, 13).  The
+    std is the population std (ddof 0), as `jnp.std`."""
+    adv = mb_data[..., _ADV]
     out = mb_data.clone()
-    out[:, _ADV] = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    out[..., _ADV] = ((adv - adv.mean(-1, keepdim=True))
+                      / (adv.std(-1, correction=0, keepdim=True) + 1e-8))
     return out
 
 
@@ -116,34 +133,50 @@ def _grads_plain(params: torch.Tensor, data: torch.Tensor, c: Dict,
     return grads, sums
 
 
+def _grads_plain_members(params: torch.Tensor, data: torch.Tensor, c: Dict,
+                         ent_coef: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_grads_plain` member by member: params (P, N_PARAMS), data
+    (P, N, 13) -> (grads (P, N_PARAMS), sums (P, 4))."""
+    out = [_grads_plain(p, d, c, ent_coef) for p, d in zip(params, data)]
+    return (torch.stack([g for g, _ in out]),
+            torch.stack([s for _, s in out]))
+
+
+def launch_blocks(P: int, n: int) -> Tuple[int, int]:
+    """(rows per block, blocks per member and tower) of a launch: about
+    2 * TARGET_BLOCKS first-pass blocks over all P members, in whole tiles."""
+    tiles = -(-n // TILE_ROWS)
+    per_tower = max(1, -(-TARGET_BLOCKS // P))
+    rows_per_block = -(-tiles // per_tower) * TILE_ROWS
+    return rows_per_block, -(-n // rows_per_block)
+
+
 def _grads_cuda(params: torch.Tensor, data: torch.Tensor, c: Dict,
                 ent_coef: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch csrc/ppo_grads.cu (both passes); same outputs as _grads_plain."""
-    n = data.shape[0]
-    _cuda.require(data, "minibatch", torch.float32, (n, N_COLS))
-    _cuda.require(params, "params", torch.float32, (N_PARAMS,))
+    """Launch csrc/ppo_grads.cu (both passes); same operands and outputs as
+    _grads_plain_members."""
+    P, n = data.shape[:2]
+    _cuda.require(data, "minibatch", torch.float32, (P, n, N_COLS))
+    _cuda.require(params, "params", torch.float32, (P, N_PARAMS))
     lib = _cuda.load("ppo_grads")
-    lib.acas_ppo_grads_partial_floats.restype = ctypes.c_int
-    lib.acas_ppo_grads_partial_floats.argtypes = [ctypes.c_int]
+    lib.acas_ppo_grads_partial_floats.restype = ctypes.c_longlong
+    lib.acas_ppo_grads_partial_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     fn = lib.acas_ppo_grads
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_float] * 7 + [ctypes.c_void_p, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 5)
-    tiles = -(-n // TILE_ROWS)
-    rows_per_block = -(-tiles // TARGET_BLOCKS) * TILE_ROWS
-    nblocks = -(-n // rows_per_block)
+    fn.argtypes = ([ctypes.c_float] * 7 + [ctypes.c_void_p]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
+    rows_per_block, nblocks = launch_blocks(P, n)
     dev = data.device
-    partial = torch.empty(lib.acas_ppo_grads_partial_floats(nblocks),
+    partial = torch.empty(lib.acas_ppo_grads_partial_floats(P, nblocks),
                           dtype=torch.float32, device=dev)
-    grads = torch.empty(N_PARAMS, dtype=torch.float32, device=dev)
-    sums = torch.empty(4, dtype=torch.float32, device=dev)
+    grads = torch.empty(P, N_PARAMS, dtype=torch.float32, device=dev)
+    sums = torch.empty(P, 4, dtype=torch.float32, device=dev)
     rc = fn(c["inv_n"], c["eps"], c["lo"], c["hi"], c["dvalue_scale"],
-            c["log_2pi"], float(np.float32(ent_coef)), _cuda.ptr(data), n,
+            c["log_2pi"], float(np.float32(ent_coef)), _cuda.ptr(data), P, n,
             rows_per_block, nblocks, _cuda.ptr(params), _cuda.ptr(partial),
             _cuda.ptr(grads), _cuda.ptr(sums), _cuda.stream_of(data))
     _cuda.check(rc, lib, "ppo_grads launch")
-    ppo_minibatch_grads.launches += 1
+    ppo_minibatch_grads_members.launches += 1
     return grads, sums
 
 
@@ -151,42 +184,67 @@ def _loss_aux(sums: torch.Tensor, n: int, log_std: torch.Tensor,
               ent_coef: float, vf_coef: float) -> Dict[str, torch.Tensor]:
     inv_n = 1.0 / n
     cls = torch.clamp(log_std.to(torch.float32), -4.0, 2.0)
-    policy_loss = sums[0] * inv_n
-    value_loss = sums[1] * inv_n
+    policy_loss = sums[..., 0] * inv_n
+    value_loss = sums[..., 1] * inv_n
     entropy = float(np.float32(0.5 * (1.0 + LOG_2PI))) + cls
     return {
         "policy_loss": policy_loss,
         "value_loss": value_loss,
         "entropy": entropy,
-        "approx_kl": sums[2] * inv_n,
-        "clip_fraction": sums[3] * inv_n,
+        "approx_kl": sums[..., 2] * inv_n,
+        "clip_fraction": sums[..., 3] * inv_n,
         "loss": policy_loss + ent_coef * (-entropy) + vf_coef * value_loss,
     }
+
+
+def ppo_minibatch_grads_members(params: torch.Tensor, mb_data: torch.Tensor,
+                                *, clip_range: float, vf_coef: float,
+                                ent_coef: float,
+                                normalize_advantage: bool = True
+                                ) -> Tuple[torch.Tensor,
+                                           Dict[str, torch.Tensor]]:
+    """Gradients of the clipped PPO loss for P members' minibatches in one
+    launch.
+
+    `params`: (P, N_PARAMS) flat vectors; `mb_data`: (P, N, 13), member m's
+    minibatch in row m, with the RAW advantage column (normalised here per
+    member when `normalize_advantage`).  Returns (grads (P, N_PARAMS) in
+    the same layout, aux dict with ppo_loss's keys plus 'loss', each a (P,)
+    tensor)."""
+    P, n = mb_data.shape[:2]
+    if mb_data.shape[2] != N_COLS:
+        raise ValueError(f"the fused update needs obs_dim 8 / act_dim 1 "
+                         f"(packed width 13, got {mb_data.shape[2]})")
+    data = mb_data.to(torch.float32)
+    if normalize_advantage:
+        data = normalize_adv_column(data)
+    data = data.contiguous()
+    params = params.contiguous()
+    c = _constants(n, clip_range, vf_coef)
+    fn = _grads_cuda if data.is_cuda else _grads_plain_members
+    grads, sums = fn(params, data, c, ent_coef)
+    aux = _loss_aux(sums, n, params[:, -1], ent_coef, vf_coef)
+    return grads, aux
 
 
 def ppo_minibatch_grads(params: torch.Tensor, mb_data: torch.Tensor, *,
                         clip_range: float, vf_coef: float, ent_coef: float,
                         normalize_advantage: bool = True
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Gradient of the clipped PPO loss for one packed minibatch.
+    """Gradient of the clipped PPO loss for one packed minibatch: the P = 1
+    call of `ppo_minibatch_grads_members`.
 
     `params`: the (N_PARAMS,) flat parameter vector; `mb_data`: (N, 13)
     with the RAW advantage column (normalised here when
     `normalize_advantage`).  Returns (grads (N_PARAMS,) in the same layout,
     aux dict with ppo_loss's keys plus 'loss', as 0-dim tensors)."""
-    n = mb_data.shape[0]
-    if mb_data.shape[1] != N_COLS:
+    if mb_data.dim() != 2 or mb_data.shape[1] != N_COLS:
         raise ValueError(f"the fused update needs obs_dim 8 / act_dim 1 "
-                         f"(packed width 13, got {mb_data.shape[1]})")
-    data = mb_data.to(torch.float32)
-    if normalize_advantage:
-        data = normalize_adv_column(data)
-    data = data.contiguous()
-    c = _constants(n, clip_range, vf_coef)
-    fn = _grads_cuda if data.is_cuda else _grads_plain
-    grads, sums = fn(params, data, c, ent_coef)
-    aux = _loss_aux(sums, n, params[-1], ent_coef, vf_coef)
-    return grads, aux
+                         f"(packed (N, 13), got {tuple(mb_data.shape)})")
+    grads, aux = ppo_minibatch_grads_members(
+        params[None], mb_data[None], clip_range=clip_range, vf_coef=vf_coef,
+        ent_coef=ent_coef, normalize_advantage=normalize_advantage)
+    return grads[0], {k: v[0] for k, v in aux.items()}
 
 
-ppo_minibatch_grads.launches = 0
+ppo_minibatch_grads_members.launches = 0

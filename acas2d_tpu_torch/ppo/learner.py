@@ -2,9 +2,13 @@
 and greedy evaluation.
 
 Counterpart of `acas2d_tpu/ppo/learner.py` on its fused path
-(`fused_rollout=True, fused_update=True`): the rollout is n_steps/K launches
-of the policy-in-kernel rollout (ops/policy_rollout.py), and every minibatch
+(`fused_rollout=True, fused_update=True`, with or without
+`fused_update_packed`): the rollout is n_steps/K launches of the
+policy-in-kernel rollout (ops/policy_rollout.py), and every minibatch
 gradient is one launch of the fused PPO-gradient kernel (ops/ppo_grads.py).
+The update (`ppo_update_members`) and the optimizer work on a leading
+member axis, which is 1 for solo training and P for a population
+(ppo/population.py).
 Optimisation semantics replicate SB3 PPO as the JAX package does: raw
 gaussian samples keep their log-probs while the env receives clipped
 actions; advantages are normalised per minibatch; value loss is unclipped
@@ -13,7 +17,10 @@ reproduce optax's `clip_by_global_norm` and `adam` step for step.
 
 Parameters and Adam moments are flat (N_PARAMS,) vectors in the kernels'
 layout (models/actor_critic.py), so a grad step hands the kernel its
-operand without packing.  Randomness comes from the TrainState's explicit
+operand without packing: the JAX package's packed-parameter update
+(`fused_update_packed`, which keeps the TPU kernel's block-diagonal
+operands and masks their off-diagonal gradients) is therefore the same
+update as the fused one here.  Randomness comes from the TrainState's explicit
 `torch.Generator`: one rollout seed per iteration and one block permutation
 per epoch.  A caller may pass both (`seed=`, `perms=`) to replay another
 run's draws — the parity tests pass the draws the JAX learner derives from
@@ -35,7 +42,7 @@ from acas2d_tpu_torch.models.actor_critic import (ActorCritic, apply_flat,
                                                   flatten)
 from acas2d_tpu_torch.oracle import MersenneSpawner
 from acas2d_tpu_torch.ops.policy_rollout import fused_policy_rollout
-from acas2d_tpu_torch.ops.ppo_grads import ppo_minibatch_grads
+from acas2d_tpu_torch.ops.ppo_grads import ppo_minibatch_grads_members
 from acas2d_tpu_torch.ppo.config import PPOConfig
 from acas2d_tpu_torch.ppo.gae import compute_gae
 from acas2d_tpu_torch.types import EnvState
@@ -105,7 +112,9 @@ class Optimizer:
 
     def update(self, grads: torch.Tensor, state: AdamState
                ) -> Tuple[torch.Tensor, AdamState]:
-        g_norm = torch.sqrt(torch.sum(grads * grads))
+        """One step on (..., N_PARAMS) gradients; each row (a population's
+        member) is clipped by its own global norm."""
+        g_norm = torch.sqrt(torch.sum(grads * grads, dim=-1, keepdim=True))
         grads = torch.where(g_norm < self.max_norm, grads,
                             (grads / g_norm) * self.max_norm)
         b1, b2 = self.b1, self.b2
@@ -194,47 +203,86 @@ def collect_rollout_fused(model: ActorCritic, state: TrainState,
 
 # ----------------------------------------------------------------- update
 
+def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
+                       optimizer: Optimizer, data: torch.Tensor,
+                       cfg: PPOConfig,
+                       generators: Optional[Sequence[torch.Generator]] = None,
+                       perms: Optional[Sequence] = None
+                       ) -> Tuple[torch.Tensor, AdamState,
+                                  Dict[str, torch.Tensor]]:
+    """n_epochs x n_minibatches of clipped-PPO Adam steps (SB3 PPO.train)
+    for P members at once, each on its own (N, 13) packed batch.
+
+    `params` and the Adam moments are (P, N_PARAMS); `data` (P, N, 13).
+    Each epoch permutes every member's contiguous blocks of
+    cfg.shuffle_block rows with that member's generator (block 1 is SB3's
+    row shuffle); `perms[e]` ((P, N / block) indices) replaces epoch e's
+    draws.  Every minibatch step of all members is one launch of the
+    gradient kernel.  Metrics are (P,) means over the steps."""
+    P, N = data.shape[:2]
+    block = cfg.shuffle_block
+    blocks = data.view(P, N // block, block, data.shape[-1])
+    members = torch.arange(P, device=data.device)[:, None]
+    aux_all: Dict[str, List[torch.Tensor]] = {}
+    for epoch in range(cfg.n_epochs):
+        if perms is not None:
+            perm = torch.as_tensor(np.asarray(perms[epoch]),
+                                   dtype=torch.int64).reshape(P, -1)
+        else:
+            perm = torch.stack([torch.randperm(N // block, generator=g)
+                                for g in generators])
+        mbs = blocks[members, perm.to(data.device)].view(
+            P, cfg.n_minibatches, cfg.minibatch_size, data.shape[-1])
+        for j in range(cfg.n_minibatches):
+            grads, aux = ppo_minibatch_grads_members(
+                params, mbs[:, j], clip_range=cfg.clip_range,
+                vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
+                normalize_advantage=cfg.normalize_advantage)
+            updates, opt_state = optimizer.update(grads, opt_state)
+            params = params + updates
+            for k, v in aux.items():
+                aux_all.setdefault(k, []).append(v)
+    metrics = {k: torch.stack(v).mean(0) for k, v in aux_all.items()}
+    return params, opt_state, metrics
+
+
 def ppo_update(params: torch.Tensor, opt_state: AdamState,
                optimizer: Optimizer, batch: RolloutBatch,
                advantages: torch.Tensor, returns: torch.Tensor,
                cfg: PPOConfig, generator: Optional[torch.Generator] = None,
                perms: Optional[Sequence] = None
                ) -> Tuple[torch.Tensor, AdamState, Dict[str, torch.Tensor]]:
-    """n_epochs x n_minibatches of clipped-PPO Adam steps (SB3 PPO.train).
+    """The solo update: `ppo_update_members` for one policy.
 
-    The six minibatch fields are folded into one (N, 13) matrix, and each
-    epoch permutes contiguous blocks of cfg.shuffle_block rows (block 1 is
-    SB3's row shuffle).  `perms[e]` (N / block indices) replaces epoch e's
-    draw from `generator`.  Every gradient comes from ppo_minibatch_grads."""
+    The six minibatch fields are folded into one (N, 13) matrix; `perms[e]`
+    (N / block indices) replaces epoch e's draw from `generator`."""
     N = cfg.batch_size
     fields = (batch.obs, batch.actions, batch.log_probs, batch.values,
               advantages, returns)
     data = torch.cat([x.reshape(N, -1).to(torch.float32) for x in fields],
                      dim=1)
-    block = cfg.shuffle_block
-    blocks = data.reshape(N // block, block, data.shape[-1])
-    aux_all: Dict[str, List[torch.Tensor]] = {}
-    for epoch in range(cfg.n_epochs):
-        if perms is not None:
-            perm = torch.tensor(np.asarray(perms[epoch]), dtype=torch.int64)
-        else:
-            perm = torch.randperm(N // block, generator=generator)
-        mbs = blocks[perm.to(data.device)].reshape(
-            cfg.n_minibatches, cfg.minibatch_size, data.shape[-1])
-        for mb in mbs:
-            grads, aux = ppo_minibatch_grads(
-                params, mb, clip_range=cfg.clip_range, vf_coef=cfg.vf_coef,
-                ent_coef=cfg.ent_coef,
-                normalize_advantage=cfg.normalize_advantage)
-            updates, opt_state = optimizer.update(grads, opt_state)
-            params = params + updates
-            for k, v in aux.items():
-                aux_all.setdefault(k, []).append(v)
-    metrics = {k: torch.stack(v).mean() for k, v in aux_all.items()}
-    return params, opt_state, metrics
+    one = AdamState(mu=opt_state.mu[None], nu=opt_state.nu[None],
+                    count=opt_state.count)
+    params, one, metrics = ppo_update_members(
+        params[None], one, optimizer, data[None], cfg,
+        generators=[generator], perms=perms)
+    return (params[0], AdamState(mu=one.mu[0], nu=one.nu[0], count=one.count),
+            {k: v[0] for k, v in metrics.items()})
 
 
 # ------------------------------------------------------------- train step
+
+def check_ported(cfg: PPOConfig) -> None:
+    """Refuse the PPOConfig options the port does not implement yet.  The
+    training steps (solo and population) call it first."""
+    unsupported = [f"{name}={getattr(cfg, name)}" for name, ported in (
+        ("fused_rollout", True), ("fused_update", True),
+        ("fused_update_bf16", False), ("update_remat", False))
+        if getattr(cfg, name) != ported]
+    if unsupported:
+        raise NotImplementedError(
+            f"not ported yet: {', '.join(unsupported)}")
+
 
 def make_train_step(cfg: PPOConfig, env_params: EnvParams,
                     device=None,
@@ -246,16 +294,10 @@ def make_train_step(cfg: PPOConfig, env_params: EnvParams,
     `on_phase(name)`, when given, is called as each phase ends ("rollout",
     "gae", "update"), so a caller can time the phases of this very step.
 
-    This is the one place that refuses the PPOConfig options the port does
-    not implement yet."""
+    It refuses the PPOConfig options the port does not implement yet
+    (`check_ported`); `fused_update_packed` is the fused update here."""
     dev = resolve_device(device)
-    unsupported = [f"{name}={getattr(cfg, name)}" for name, ported in (
-        ("fused_rollout", True), ("fused_update", True),
-        ("fused_update_bf16", False), ("fused_update_packed", False),
-        ("update_remat", False)) if getattr(cfg, name) != ported]
-    if unsupported:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(unsupported)}")
+    check_ported(cfg)
     mark = on_phase if on_phase is not None else (lambda name: None)
     model = ActorCritic(device=dev)
     optimizer = Optimizer(cfg)
@@ -294,6 +336,17 @@ def greedy_episodes(model: ActorCritic, params: torch.Tensor,
     record its FIRST episode: per-env return, length and outcome.  The
     policy runs in its own dtype (float32) on the env's observations; the env
     steps in its dtype (float64 for the exact protocol), as eval.py does."""
+    return greedy_rollout(
+        lambda o: apply_flat(model, params, o.to(params.dtype))[0][:, 0],
+        env_state, obs, env_params)
+
+
+@torch.no_grad()
+def greedy_rollout(policy_mean: Callable[[torch.Tensor], torch.Tensor],
+                   env_state: EnvState, obs: torch.Tensor,
+                   env_params: EnvParams) -> Dict[str, torch.Tensor]:
+    """`greedy_episodes` for any policy: `policy_mean(obs (n, 8))` gives
+    the (n,) action means (a population's members, each on its own envs)."""
     n = obs.shape[0]
     dtype = env_state.px.dtype
     dev = obs.device
@@ -302,8 +355,7 @@ def greedy_episodes(model: ActorCritic, params: torch.Tensor,
     outcome = torch.zeros(n, dtype=torch.int32, device=dev)
     done_seen = torch.zeros(n, dtype=torch.bool, device=dev)
     for t in range(env_params.max_steps):
-        mean = apply_flat(model, params, obs.to(params.dtype))[0]
-        a = torch.clamp(mean[:, 0], -1.0, 1.0).to(dtype)
+        a = torch.clamp(policy_mean(obs), -1.0, 1.0).to(dtype)
         env_state, out = vector.step_batch(env_state, a, env_params)
         active = ~done_seen
         ret = ret + torch.where(active, out.reward, 0.0)
@@ -319,14 +371,16 @@ def greedy_episodes(model: ActorCritic, params: torch.Tensor,
 
 
 def eval_metrics(ep: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Episode statistics over the last axis: (n,) episodes give 0-dim
+    metrics, a population's (P, n) give (P,)."""
     ret = ep["return"]
     return {
-        "eval_return_mean": ret.mean(),
-        "eval_return_std": ret.std(correction=0),
-        "eval_length_mean": ep["length"].to(torch.float32).mean(),
-        "eval_goal_rate": (ep["outcome"] == 1).to(torch.float32).mean(),
-        "eval_collision_rate": (ep["outcome"] == 2).to(torch.float32).mean(),
-        "eval_done_all": ep["done"].all(),
+        "eval_return_mean": ret.mean(-1),
+        "eval_return_std": ret.std(-1, correction=0),
+        "eval_length_mean": ep["length"].to(torch.float32).mean(-1),
+        "eval_goal_rate": (ep["outcome"] == 1).to(torch.float32).mean(-1),
+        "eval_collision_rate": (ep["outcome"] == 2).to(torch.float32).mean(-1),
+        "eval_done_all": ep["done"].all(-1),
     }
 
 

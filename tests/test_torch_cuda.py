@@ -1,6 +1,10 @@
 """Card-only checks of the port's CUDA kernels against their plain PyTorch
 versions (same inputs, same card), plus the wrappers' operand checks.
 
+Each kernel serves one policy (P = 1) and a population's P members in one
+launch; both are checked, and so are the member launches' bit-identity
+with the solo launch and across repeated launches.
+
 Tests marked `cuda` skip without a CUDA device; a skip is unverified, not a
 pass.  On a machine with a card, run them with
 
@@ -31,13 +35,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _rollout_args(B, K, dev, seed=7):
+def _rollout_args(B, K, dev, seed=7, P=1):
+    """Operands of _rollout_cuda / _rollout_plain: P members of B envs."""
     gen = torch.Generator().manual_seed(seed)
-    params = flatten(ActorCritic(generator=gen))
-    params[-1] = -0.5
-    es, obs = vector.reset_batch(B, DEFAULT_PARAMS, gen, torch.float32,
-                                  "cpu")
-    steps = torch.randint(1, DEFAULT_PARAMS.max_steps + 1, (B,), generator=gen)
+    params = torch.stack([flatten(ActorCritic(generator=gen))
+                          for _ in range(P)])
+    params[:, -1] = -0.5
+    es, obs = vector.reset_batch(P * B, DEFAULT_PARAMS, gen, torch.float32,
+                                 "cpu")
+    steps = torch.randint(1, DEFAULT_PARAMS.max_steps + 1, (P * B,),
+                          generator=gen)
     st = torch.stack([es.px, es.py, es.ppsi, es.tx[:, 0], es.ty[:, 0],
                       es.tv[:, 0], es.tpsi[:, 0], es.total_reward])
     return (sm.kernel_constants(DEFAULT_PARAMS), DEFAULT_PARAMS.max_steps,
@@ -45,29 +52,27 @@ def _rollout_args(B, K, dev, seed=7):
             params.to(dev), seed, 5, K)
 
 
-def _grad_args(n, dev, seed=3):
+def _grad_args(n, dev, seed=3, P=1):
+    """Operands of _grads_cuda / _grads_plain_members: P minibatches."""
     gen = torch.Generator().manual_seed(seed)
-    model = ActorCritic(generator=gen)
-    data = torch.randn(n, 13, generator=gen) * 0.5
-    with torch.no_grad():
-        mean, log_std, value = model(data[:, :8])
-        data[:, 8] = mean[:, 0] + torch.randn(n, generator=gen) * 0.7
-        data[:, 9] = (-0.5 * ((data[:, 8] - mean[:, 0]) ** 2 + ppo_grads.LOG_2PI)
-                      + torch.randn(n, generator=gen) * 0.3)
-    data = ppo_grads.normalize_adv_column(data).to(dev)
-    return (flatten(model).to(dev), data, ppo_grads._constants(n, 0.2, 0.5),
-            0.01)
+    params, datas = [], []
+    for _ in range(P):
+        model = ActorCritic(generator=gen)
+        data = torch.randn(n, 13, generator=gen) * 0.5
+        with torch.no_grad():
+            mean, log_std, value = model(data[:, :8])
+            data[:, 8] = mean[:, 0] + torch.randn(n, generator=gen) * 0.7
+            data[:, 9] = (-0.5 * ((data[:, 8] - mean[:, 0]) ** 2
+                                  + ppo_grads.LOG_2PI)
+                          + torch.randn(n, generator=gen) * 0.3)
+        params.append(flatten(model))
+        datas.append(data)
+    data = ppo_grads.normalize_adv_column(torch.stack(datas)).to(dev)
+    return (torch.stack(params).to(dev), data,
+            ppo_grads._constants(n, 0.2, 0.5), 0.01)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,K", [(2048, 16), (1000, 3)])
-def test_rollout_kernel_matches_plain(cuda, B, K):
-    args = _rollout_args(B, K, cuda)
-    n0 = policy_rollout.fused_policy_rollout.launches
-    got = policy_rollout._rollout_cuda(*args)
-    want = policy_rollout._rollout_plain(*args)
-    torch.cuda.synchronize()
-    assert policy_rollout.fused_policy_rollout.launches == n0 + 1
+def _assert_rollout_close(got, want):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
         if g.dtype == torch.int32:
@@ -77,14 +82,64 @@ def test_rollout_kernel_matches_plain(cuda, B, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,K", [(2048, 16), (1000, 3)])
+def test_rollout_kernel_matches_plain(cuda, B, K):
+    args = _rollout_args(B, K, cuda)
+    n0 = policy_rollout.fused_policy_rollout_members.launches
+    got = policy_rollout._rollout_cuda(*args)
+    want = policy_rollout._rollout_plain(*args)
+    torch.cuda.synchronize()
+    assert policy_rollout.fused_policy_rollout_members.launches == n0 + 1
+    _assert_rollout_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,B,K", [(4, 1024, 8), (3, 200, 2)])
+def test_member_rollout_kernel_matches_plain(cuda, P, B, K):
+    args = _rollout_args(B, K, cuda, P=P)
+    n0 = policy_rollout.fused_policy_rollout_members.launches
+    got = policy_rollout._rollout_cuda(*args)
+    want = policy_rollout._rollout_plain(*args)
+    torch.cuda.synchronize()
+    assert policy_rollout.fused_policy_rollout_members.launches == n0 + 1
+    _assert_rollout_close(got, want)
+
+
+@pytest.mark.cuda
+def test_member_rollout_p1_and_member0_equal_the_solo_launch(cuda):
+    """The solo wrapper is the P = 1 member launch, and member 0 of a
+    2-member launch (the global envs 0..B-1) with member 0's weights and
+    state is the solo launch, bit for bit."""
+    c, ms, st, steps, obs, params, seed, off, K = _rollout_args(1024, 8, cuda,
+                                                                P=2)
+    B = 1024
+    state = dict(zip(policy_rollout.STATE_KEYS, st[:, :B]), steps=steps[:B])
+    solo = policy_rollout.fused_policy_rollout(state, obs[:B], params[0],
+                                               seed, off, K)
+    p1 = policy_rollout.fused_policy_rollout_members(
+        {k: v[None] for k, v in state.items()}, obs[None, :B], params[:1],
+        seed, off, K)
+    two = policy_rollout.fused_policy_rollout_members(
+        {k: torch.stack([v, v]) for k, v in state.items()},
+        torch.stack([obs[:B], obs[:B]]), params[[0, 0]], seed, off, K)
+    torch.cuda.synchronize()
+    for k, v in solo[1].items():
+        assert torch.equal(v, p1[1][k][:, 0]), k
+        assert torch.equal(v, two[1][k][:, 0]), k
+    for k, v in solo[0].items():
+        assert torch.equal(v, p1[0][k][0]) and torch.equal(v, two[0][k][0]), k
+    assert not torch.equal(two[1]["actions"][:, 0], two[1]["actions"][:, 1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [65536, 1000, 64])
 def test_grads_kernel_matches_plain(cuda, n):
     args = _grad_args(n, cuda)
-    n0 = ppo_grads.ppo_minibatch_grads.launches
+    n0 = ppo_grads.ppo_minibatch_grads_members.launches
     g, s = ppo_grads._grads_cuda(*args)
-    w, ws = ppo_grads._grads_plain(*args)
+    w, ws = ppo_grads._grads_plain_members(*args)
     torch.cuda.synchronize()
-    assert ppo_grads.ppo_minibatch_grads.launches == n0 + 1
+    assert ppo_grads.ppo_minibatch_grads_members.launches == n0 + 1
     assert torch.isfinite(g).all()
     assert ((g - w).abs().max() / w.abs().max()) < GRAD_REL_TOL
     assert torch.allclose(s, ws, rtol=GRAD_REL_TOL, atol=1e-3)
@@ -93,18 +148,46 @@ def test_grads_kernel_matches_plain(cuda, n):
     assert torch.equal(g, g2) and torch.equal(s, s2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,n", [(8, 8192), (3, 1000)])
+def test_member_grads_kernel_matches_plain_and_repeats(cuda, P, n):
+    args = _grad_args(n, cuda, P=P)
+    g, s = ppo_grads._grads_cuda(*args)
+    w, ws = ppo_grads._grads_plain_members(*args)
+    g2, s2 = ppo_grads._grads_cuda(*args)
+    torch.cuda.synchronize()
+    assert g.shape == w.shape == (P, 9603) and s.shape == ws.shape == (P, 4)
+    for m in range(P):
+        assert ((g[m] - w[m]).abs().max() / w[m].abs().max()) < GRAD_REL_TOL
+    assert torch.allclose(s, ws, rtol=GRAD_REL_TOL, atol=1e-3)
+    assert torch.equal(g, g2) and torch.equal(s, s2)
+
+
+@pytest.mark.cuda
+def test_member_grads_p1_equals_the_solo_launch(cuda):
+    params, data, c, ent = _grad_args(4096, cuda, P=1)
+    kw = dict(clip_range=0.2, vf_coef=0.5, ent_coef=ent)
+    g, aux = ppo_grads.ppo_minibatch_grads(params[0], data[0], **kw)
+    gm, auxm = ppo_grads.ppo_minibatch_grads_members(params, data, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(g, gm[0])
+    for k, v in aux.items():
+        assert torch.equal(v, auxm[k][0]), k
+
+
 def test_kernel_wrappers_check_operands():
     """The CUDA entry points refuse CPU or mistyped operands before any
     launch (runs without a card: the checks come first)."""
     args = list(_rollout_args(128, 2, torch.device("cpu")))
-    n0 = policy_rollout.fused_policy_rollout.launches
+    n0 = policy_rollout.fused_policy_rollout_members.launches
     with pytest.raises(ValueError, match="CUDA"):
         policy_rollout._rollout_cuda(*args)
     gargs = list(_grad_args(64, torch.device("cpu")))
     with pytest.raises(ValueError, match="CUDA"):
         ppo_grads._grads_cuda(*gargs)
-    assert policy_rollout.fused_policy_rollout.launches == n0
+    assert policy_rollout.fused_policy_rollout_members.launches == n0
     if torch.cuda.is_available():
+        args[5] = args[5].cuda()
         args[2] = args[2].double().cuda()
         with pytest.raises(ValueError, match="float32"):
             policy_rollout._rollout_cuda(*args)

@@ -4,8 +4,9 @@ epochs, 2 iterations, through the plain versions of both kernels.
 
 It prints one JSON line of metrics per iteration, every metric is finite,
 the first iteration is evaluated (sampled spawns or the Mersenne stream),
-options the port does not implement yet are refused, and the default device
-is CUDA."""
+options the port does not implement yet are refused (by solo and
+population runs), and the default device is CUDA.  Population runs are
+tested in test_torch_population.py."""
 
 import json
 import math
@@ -36,7 +37,8 @@ def test_driver_prints_one_finite_row_per_iteration(exact_eval, capsys):
     assert 0.0 <= rows[0]["eval_goal_rate"] <= 1.0
 
 
-@pytest.mark.parametrize("flag", [["--fused-update-packed"],
+@pytest.mark.parametrize("flag", [["--population", "2",
+                                   "--fused-update-bf16"],
                                   ["--fused-update-bf16"],
                                   ["--no-fused-rollout"],
                                   ["--no-fused-update"]])
@@ -45,7 +47,8 @@ def test_driver_refuses_unported_flags(flag):
         train.run(train.parse_args(TINY + flag))
 
 
-@pytest.mark.parametrize("flag", [["--population", "4"], ["--gpus", "2"]])
+@pytest.mark.parametrize("flag", [["--checkpoint-every", "32768"],
+                                  ["--gpus", "2"]])
 def test_driver_does_not_know_unported_modes(flag, capsys):
     with pytest.raises(SystemExit):
         train.parse_args(TINY + flag)
