@@ -2,9 +2,9 @@
 // clipped PPO loss, with the loss statistics, in two deterministic passes.
 //
 // Replaces the TPU kernel acas2d_tpu/ops/pallas_update.py:60
-// (_ppo_grad_kernel), f32 operands, reached through ppo_minibatch_grads :345
-// (one policy) and, vmapped over a population's members,
-// ppo_minibatch_grads_packed :389 (P members' minibatches in one launch).
+// (_ppo_grad_kernel), reached through ppo_minibatch_grads :345 (one policy)
+// and, vmapped over a population's members, ppo_minibatch_grads_packed :389
+// (P members' minibatches in one launch), with f32 or bf16 operands.
 // Plain version: acas2d_tpu_torch/ops/ppo_grads.py:_grads_plain.
 //
 // What it computes (the Pallas kernel's branch structure): the two towers'
@@ -15,9 +15,19 @@
 // value loss, KL and clip count.  Advantages arrive normalised (the wrapper
 // normalises the minibatch, as normalize_adv_column does).
 //
+// BF16 (the JAX kernel's bf16=True, pallas_update.py:109-127): the two
+// operands of each of the eight products (forward W1 x, W2 h1, w_head h2;
+// backward dO h2, w_head dO, e2 h1, W2^T e2, e1 x) are rounded to bf16
+// (round to nearest even); the products and sums stay float32, and so do
+// the bias sums, the tanh derivatives and the loss.  The weights and x
+// enter only products, so they are rounded once as a tile is loaded; the
+// activations and errors, which the biases and derivatives also read, are
+// rounded where a product reads them.  Without BF16 the rounding is the
+// identity and the code is the f32 kernel's.
+//
 // What bounds it on an H100: ~54,000 flop per row (forward 2 x 9,344,
-// backward about twice that) against 52 bytes read per row, so float32
-// operations on the CUDA cores (no TF32, no bf16).
+// backward about twice that) against 52 bytes read per row, so operations:
+// float32 on the CUDA cores here (no tensor cores, with or without BF16).
 // Design: blocks run in no order, so the TPU kernel's sequential
 // accumulation becomes two passes.  Pass 1: block (b, member * 2 + tower)
 // takes a contiguous range of one member's rows for one tower (the
@@ -34,6 +44,7 @@
 // so the packed path's masked gradients are exactly the flat vector.  The
 // wrapper bounds the blocks of a launch (about 256 over all members), so
 // the partials stay small at any population size.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,6 +71,18 @@ struct GradConsts {
   float inv_n, eps, lo, hi, dvalue_scale, log_2pi;
 };
 
+// A product operand: rounded to bf16 and back under BF16, else itself.
+template <bool BF16>
+__device__ __forceinline__ float rnd(float x) {
+  return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+// Tower entries that are product operands: W1, W2 and the head weight.
+__device__ __forceinline__ bool is_weight(int i) {
+  return i < O_B1 || (i >= O_W2 && i < O_B2) || (i >= O_WH && i < O_BH);
+}
+
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS) grad_partials_kernel(
     const GradConsts c, const float* __restrict__ data, int n,
     int rows_per_block, const float* __restrict__ params,
@@ -83,7 +106,8 @@ __global__ void __launch_bounds__(THREADS) grad_partials_kernel(
   float* stat = dout + T;            // [NSTAT][T]
 
   const float* tp = params + tower * TOWER;
-  for (int i = tid; i < TOWER; i += THREADS) w1[i] = tp[i];
+  for (int i = tid; i < TOWER; i += THREADS)
+    w1[i] = is_weight(i) ? rnd<BF16>(tp[i]) : tp[i];
   const float cls = fminf(fmaxf(params[2 * TOWER], -4.0f), 2.0f);
   const float var = expf(2.0f * cls);
 
@@ -102,7 +126,7 @@ __global__ void __launch_bounds__(THREADS) grad_partials_kernel(
     for (int i = tid; i < T * NCOL; i += THREADS) {
       const int t = i / NCOL, col = i - t * NCOL;
       const float v = t < nt ? data[(size_t)r0 * NCOL + i] : 0.0f;
-      if (col < OBS) xs[col * LD + t] = v;
+      if (col < OBS) xs[col * LD + t] = rnd<BF16>(v);
       else if (col == 8) rowv[t] = v;
       else if (col == 9) rowv[T + t] = v;
       else if (col == 11) rowv[2 * T + t] = v;
@@ -123,7 +147,8 @@ __global__ void __launch_bounds__(THREADS) grad_partials_kernel(
       const int j = i / T, t = i - j * T;
       float a = 0.0f;
 #pragma unroll 16
-      for (int k = 0; k < H; ++k) a += w2[j * H + k] * h1[k * LD + t];
+      for (int k = 0; k < H; ++k)
+        a += w2[j * H + k] * rnd<BF16>(h1[k * LD + t]);
       h2[j * LD + t] = tanhf(a + w1[O_B2 + j]);
     }
     __syncthreads();
@@ -131,7 +156,7 @@ __global__ void __launch_bounds__(THREADS) grad_partials_kernel(
     if (tid < T) {
       const int t = tid;
       float o = 0.0f;
-      for (int j = 0; j < H; ++j) o += wh[j] * h2[j * LD + t];
+      for (int j = 0; j < H; ++j) o += wh[j] * rnd<BF16>(h2[j * LD + t]);
       o += w1[O_BH];
       float d = 0.0f;
       if (t < nt) {
@@ -173,7 +198,8 @@ __global__ void __launch_bounds__(THREADS) grad_partials_kernel(
     if (tid >= 128 && tid < 192) {
       const int j = tid - 128;
       float s = 0.0f;
-      for (int t = 0; t < T; ++t) s += dout[t] * h2[j * LD + t];
+      for (int t = 0; t < T; ++t)
+        s += rnd<BF16>(dout[t]) * rnd<BF16>(h2[j * LD + t]);
       av += s;
     } else if (tid == 192) {
       float s = 0.0f;
@@ -185,7 +211,7 @@ __global__ void __launch_bounds__(THREADS) grad_partials_kernel(
     for (int i = tid; i < H * T; i += THREADS) {
       const int j = i / T, t = i - j * T;
       const float hv = h2[j * LD + t];
-      h2[j * LD + t] = (wh[j] * dout[t]) * (1.0f - hv * hv);
+      h2[j * LD + t] = (wh[j] * rnd<BF16>(dout[t])) * (1.0f - hv * hv);
     }
     __syncthreads();
     // dW2 += e2 h1^T over the tile's rows; b2
@@ -193,9 +219,9 @@ __global__ void __launch_bounds__(THREADS) grad_partials_kernel(
     for (int t = 0; t < T; ++t) {
       float ev[4], hv[4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) ev[a] = h2[(j0 + a) * LD + t];
+      for (int a = 0; a < 4; ++a) ev[a] = rnd<BF16>(h2[(j0 + a) * LD + t]);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) hv[b] = h1[(k0 + b) * LD + t];
+      for (int b = 0; b < 4; ++b) hv[b] = rnd<BF16>(h1[(k0 + b) * LD + t]);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -212,7 +238,8 @@ __global__ void __launch_bounds__(THREADS) grad_partials_kernel(
       const int k = i / T, t = i - k * T;
       float s = 0.0f;
 #pragma unroll 16
-      for (int j = 0; j < H; ++j) s += w2[j * H + k] * h2[j * LD + t];
+      for (int j = 0; j < H; ++j)
+        s += w2[j * H + k] * rnd<BF16>(h2[j * LD + t]);
       const float hv = h1[k * LD + t];
       e1[k * LD + t] = s * (1.0f - hv * hv);
     }
@@ -222,7 +249,8 @@ __global__ void __launch_bounds__(THREADS) grad_partials_kernel(
     for (int q = 0; q < 2; ++q) {
       const int idx = tid + q * THREADS, k = idx >> 3, f = idx & 7;
       float s = 0.0f;
-      for (int t = 0; t < T; ++t) s += e1[k * LD + t] * xs[f * LD + t];
+      for (int t = 0; t < T; ++t)
+        s += rnd<BF16>(e1[k * LD + t]) * xs[f * LD + t];
       aw1[q] += s;
     }
     if (tid < 64) {
@@ -289,6 +317,21 @@ __global__ void grad_reduce_kernel(const float* __restrict__ partial, int P,
   }
 }
 
+template <bool BF16>
+cudaError_t launch_partials(const GradConsts& c, const float* data, int P,
+                            int n, int rows_per_block, int nblocks,
+                            const float* params, float* partial,
+                            cudaStream_t stream) {
+  const size_t smem = SMEM_FLOATS * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      grad_partials_kernel<BF16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  grad_partials_kernel<BF16><<<dim3(nblocks, 2 * P), THREADS, smem, stream>>>(
+      c, data, n, rows_per_block, params, partial);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -305,26 +348,23 @@ long long acas_ppo_grads_partial_floats(int P, int nblocks) {
 // P members: data (P, n, 13) row-major with each member's advantage column
 // normalised; params (P, 9603) in the port's flat layout; partial
 // (P, 2, nblocks, REC); grads (P, 9603); sums (P, 4).  nblocks blocks per
-// member and tower, rows_per_block rows each.  Returns the launches'
-// cudaGetLastError().
+// member and tower, rows_per_block rows each; bf16 != 0 rounds the
+// products' operands to bf16.  Returns the launches' cudaGetLastError().
 int acas_ppo_grads(float inv_n, float eps, float lo, float hi,
                    float dvalue_scale, float log_2pi, float ent_coef,
                    const float* data, int P, int n, int rows_per_block,
-                   int nblocks, const float* params, float* partial,
+                   int nblocks, int bf16, const float* params, float* partial,
                    float* grads, float* sums, void* stream) {
-  const size_t smem = SMEM_FLOATS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      grad_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const GradConsts c{inv_n, eps, lo, hi, dvalue_scale, log_2pi};
-  grad_partials_kernel<<<dim3(nblocks, 2 * P), THREADS, smem,
-                         (cudaStream_t)stream>>>(c, data, n, rows_per_block,
-                                                 params, partial);
-  err = cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err =
+      bf16 ? launch_partials<true>(c, data, P, n, rows_per_block, nblocks,
+                                   params, partial, st)
+           : launch_partials<false>(c, data, P, n, rows_per_block, nblocks,
+                                    params, partial, st);
   if (err != cudaSuccess) return (int)err;
   const int total = P * (2 * TOWER + NSTAT);
-  grad_reduce_kernel<<<(total + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+  grad_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(
       partial, P, nblocks, ent_coef, grads, sums);
   return (int)cudaGetLastError();
 }

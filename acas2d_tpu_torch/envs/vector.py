@@ -1,4 +1,4 @@
-"""Batched environment API (counterpart of `acas2d_tpu/envs/vector.py:27-66`).
+"""Batched environment API (counterpart of `acas2d_tpu/envs/vector.py:27-46`).
 
 The JAX package builds its batch with `vmap` over the single-env core; the
 port's core is batch-native already, so these are the same calls under the
@@ -30,3 +30,12 @@ def step_batch(states: EnvState, actions: torch.Tensor,
                ) -> Tuple[EnvState, StepOutput]:
     """`core.step` over the batch: actions (B,)."""
     return core.step(states, actions, params)
+
+
+def step_autoreset_batch(states: EnvState, actions: torch.Tensor,
+                         params: EnvParams = DEFAULT_PARAMS,
+                         generator: Optional[torch.Generator] = None
+                         ) -> Tuple[EnvState, StepOutput]:
+    """`core.step_autoreset` over the batch: actions (B,); terminated envs
+    respawn with draws from `generator` (on the batch's device for speed)."""
+    return core.step_autoreset(states, actions, params, generator)

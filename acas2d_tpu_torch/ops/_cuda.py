@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("policy_rollout", "ppo_grads")
+SOURCES = ("policy_rollout", "ppo_grads", "env_rollout", "precision_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

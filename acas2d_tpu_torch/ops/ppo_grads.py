@@ -1,7 +1,7 @@
 """Fused PPO minibatch gradient: forward + hand-derived backward.
 
-Counterpart of `acas2d_tpu/ops/pallas_update.py:60-191,290-297,345-386`
-(f32 operands).  For one packed minibatch (N, 13) =
+Counterpart of `acas2d_tpu/ops/pallas_update.py:60-191,290-297,345-386`.
+For one packed minibatch (N, 13) =
 [obs(8), action, old_logp, old_value, advantage, return] it returns the
 gradient of `ppo/learner.py:ppo_loss` with respect to the flat parameter
 vector, and the loss statistics.  The branch structure is the JAX kernel's:
@@ -11,6 +11,14 @@ inside the band and where clipping would have helped (`sel`), the log-std
 gradient is straight-through its clamp, and the loss's `-ent_coef * entropy`
 term adds `-ent_coef` to it.  SB3's per-minibatch advantage normalisation
 runs before the kernel (`normalize_adv_column`).
+
+`bf16=True` is the JAX kernel's bf16 variant (`pallas_update.py:109-127`,
+`PPOConfig.fused_update_bf16`): the two operands of each of its eight
+matrix products are rounded to bf16 (round to nearest even) and the
+products are summed in float32.  Everything else stays float32 and
+unrounded: the bias sums, the tanh derivatives and the loss.  The TPU
+kernel's block-diagonal packing puts zeros off the diagonal, which stay
+zero when rounded, so the per-tower arithmetic here is the same function.
 
 `ppo_minibatch_grads_members` computes the gradients of P member policies,
 each on its own minibatch, in one launch: the port's counterpart of the JAX
@@ -37,9 +45,9 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
-from acas2d_tpu_torch.models.actor_critic import (N_PARAMS, split_flat,
-                                                  tower_forward)
+from acas2d_tpu_torch.models.actor_critic import N_PARAMS, split_flat
 from acas2d_tpu_torch.ops import _cuda
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -77,11 +85,19 @@ def _constants(n: int, clip_range: float, vf_coef: float):
                 log_2pi=float(f(LOG_2PI)))
 
 
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (round to nearest even) and back to float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
 def _grads_plain(params: torch.Tensor, data: torch.Tensor, c: Dict,
-                 ent_coef: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                 ent_coef: float, bf16: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's forward and hand-derived backward in torch.
     Returns (grads (N_PARAMS,) in the flat layout with d log_std - ent_coef
-    last, sums (4,): policy loss, value loss, kl, clip count)."""
+    last, sums (4,): policy loss, value loss, kl, clip count).  `bf16`
+    rounds the operands of the eight products (`r` below)."""
+    r = bf16_round if bf16 else (lambda t: t)
     pi, vf, log_std = split_flat(params)
     x = data[:, _OBS:_ACT]
     act, old_logp = data[:, _ACT], data[:, _LOGP]
@@ -89,8 +105,14 @@ def _grads_plain(params: torch.Tensor, data: torch.Tensor, c: Dict,
     cls = torch.clamp(log_std[0], -4.0, 2.0)
     var = torch.exp(2.0 * cls)
 
-    h1p, h2p, mean = tower_forward(x, pi)
-    h1v, h2v, value = tower_forward(x, vf)
+    def forward(tower):
+        w1, b1, w2, b2, wh, bh = tower
+        h1 = torch.tanh(F.linear(r(x), r(w1), b1))
+        h2 = torch.tanh(F.linear(r(h1), r(w2), b2))
+        return h1, h2, r(h2) @ r(wh) + bh
+
+    h1p, h2p, mean = forward(pi)
+    h1v, h2v, value = forward(vf)
 
     diff = act - mean
     logp = -0.5 * (diff * diff / var + 2.0 * cls + c["log_2pi"])
@@ -117,13 +139,13 @@ def _grads_plain(params: torch.Tensor, data: torch.Tensor, c: Dict,
 
     def tower_grads(tower, h1, h2, dout):
         w1, b1, w2, b2, wh, bh = tower
-        g_wh = dout @ h2
+        g_wh = r(dout) @ r(h2)
         g_bh = dout.sum().reshape(1)
-        e2 = (dout[:, None] * wh[None, :]) * (1.0 - h2 * h2)
-        g_w2 = e2.T @ h1
+        e2 = (r(dout)[:, None] * r(wh)[None, :]) * (1.0 - h2 * h2)
+        g_w2 = r(e2).T @ r(h1)
         g_b2 = e2.sum(0)
-        e1 = (e2 @ w2) * (1.0 - h1 * h1)
-        g_w1 = e1.T @ x
+        e1 = (r(e2) @ r(w2)) * (1.0 - h1 * h1)
+        g_w1 = r(e1).T @ r(x)
         g_b1 = e1.sum(0)
         return [g_w1.reshape(-1), g_b1, g_w2.reshape(-1), g_b2, g_wh, g_bh]
 
@@ -134,10 +156,12 @@ def _grads_plain(params: torch.Tensor, data: torch.Tensor, c: Dict,
 
 
 def _grads_plain_members(params: torch.Tensor, data: torch.Tensor, c: Dict,
-                         ent_coef: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                         ent_coef: float, bf16: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`_grads_plain` member by member: params (P, N_PARAMS), data
     (P, N, 13) -> (grads (P, N_PARAMS), sums (P, 4))."""
-    out = [_grads_plain(p, d, c, ent_coef) for p, d in zip(params, data)]
+    out = [_grads_plain(p, d, c, ent_coef, bf16)
+           for p, d in zip(params, data)]
     return (torch.stack([g for g, _ in out]),
             torch.stack([s for _, s in out]))
 
@@ -152,7 +176,8 @@ def launch_blocks(P: int, n: int) -> Tuple[int, int]:
 
 
 def _grads_cuda(params: torch.Tensor, data: torch.Tensor, c: Dict,
-                ent_coef: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                ent_coef: float, bf16: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch csrc/ppo_grads.cu (both passes); same operands and outputs as
     _grads_plain_members."""
     P, n = data.shape[:2]
@@ -164,7 +189,7 @@ def _grads_cuda(params: torch.Tensor, data: torch.Tensor, c: Dict,
     fn = lib.acas_ppo_grads
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_float] * 7 + [ctypes.c_void_p]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
     rows_per_block, nblocks = launch_blocks(P, n)
     dev = data.device
     partial = torch.empty(lib.acas_ppo_grads_partial_floats(P, nblocks),
@@ -173,7 +198,8 @@ def _grads_cuda(params: torch.Tensor, data: torch.Tensor, c: Dict,
     sums = torch.empty(P, 4, dtype=torch.float32, device=dev)
     rc = fn(c["inv_n"], c["eps"], c["lo"], c["hi"], c["dvalue_scale"],
             c["log_2pi"], float(np.float32(ent_coef)), _cuda.ptr(data), P, n,
-            rows_per_block, nblocks, _cuda.ptr(params), _cuda.ptr(partial),
+            rows_per_block, nblocks, int(bf16), _cuda.ptr(params),
+            _cuda.ptr(partial),
             _cuda.ptr(grads), _cuda.ptr(sums), _cuda.stream_of(data))
     _cuda.check(rc, lib, "ppo_grads launch")
     ppo_minibatch_grads_members.launches += 1
@@ -200,7 +226,8 @@ def _loss_aux(sums: torch.Tensor, n: int, log_std: torch.Tensor,
 def ppo_minibatch_grads_members(params: torch.Tensor, mb_data: torch.Tensor,
                                 *, clip_range: float, vf_coef: float,
                                 ent_coef: float,
-                                normalize_advantage: bool = True
+                                normalize_advantage: bool = True,
+                                bf16: bool = False
                                 ) -> Tuple[torch.Tensor,
                                            Dict[str, torch.Tensor]]:
     """Gradients of the clipped PPO loss for P members' minibatches in one
@@ -208,9 +235,9 @@ def ppo_minibatch_grads_members(params: torch.Tensor, mb_data: torch.Tensor,
 
     `params`: (P, N_PARAMS) flat vectors; `mb_data`: (P, N, 13), member m's
     minibatch in row m, with the RAW advantage column (normalised here per
-    member when `normalize_advantage`).  Returns (grads (P, N_PARAMS) in
-    the same layout, aux dict with ppo_loss's keys plus 'loss', each a (P,)
-    tensor)."""
+    member when `normalize_advantage`); `bf16` rounds the products'
+    operands to bf16.  Returns (grads (P, N_PARAMS) in the same layout, aux
+    dict with ppo_loss's keys plus 'loss', each a (P,) tensor)."""
     P, n = mb_data.shape[:2]
     if mb_data.shape[2] != N_COLS:
         raise ValueError(f"the fused update needs obs_dim 8 / act_dim 1 "
@@ -222,14 +249,14 @@ def ppo_minibatch_grads_members(params: torch.Tensor, mb_data: torch.Tensor,
     params = params.contiguous()
     c = _constants(n, clip_range, vf_coef)
     fn = _grads_cuda if data.is_cuda else _grads_plain_members
-    grads, sums = fn(params, data, c, ent_coef)
+    grads, sums = fn(params, data, c, ent_coef, bf16)
     aux = _loss_aux(sums, n, params[:, -1], ent_coef, vf_coef)
     return grads, aux
 
 
 def ppo_minibatch_grads(params: torch.Tensor, mb_data: torch.Tensor, *,
                         clip_range: float, vf_coef: float, ent_coef: float,
-                        normalize_advantage: bool = True
+                        normalize_advantage: bool = True, bf16: bool = False
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Gradient of the clipped PPO loss for one packed minibatch: the P = 1
     call of `ppo_minibatch_grads_members`.
@@ -243,7 +270,7 @@ def ppo_minibatch_grads(params: torch.Tensor, mb_data: torch.Tensor, *,
                          f"(packed (N, 13), got {tuple(mb_data.shape)})")
     grads, aux = ppo_minibatch_grads_members(
         params[None], mb_data[None], clip_range=clip_range, vf_coef=vf_coef,
-        ent_coef=ent_coef, normalize_advantage=normalize_advantage)
+        ent_coef=ent_coef, normalize_advantage=normalize_advantage, bf16=bf16)
     return grads[0], {k: v[0] for k, v in aux.items()}
 
 

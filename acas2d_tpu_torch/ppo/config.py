@@ -50,10 +50,11 @@ class PPOConfig:
     # Compute each minibatch's PPO-loss gradient with the fused
     # forward+backward kernel (ops/ppo_grads.py).
     fused_update: bool = False
-    # Options of the JAX package's fused update that the port does not
-    # implement yet (bf16 operands, packed-parameter loop, chunk width of
-    # the TPU grid).  Kept so the two configurations compare field by field.
+    # bf16 operands in the gradient kernel's products, float32 sums.
     fused_update_bf16: bool = False
+    # The JAX package's packed-parameter loop (the fused update itself in
+    # the port) and the chunk width of the TPU grid.  Kept so the two
+    # configurations compare field by field.
     fused_update_packed: bool = False
     fused_update_chunk: int = 4096
     update_remat: bool = False

@@ -3,7 +3,7 @@ and greedy evaluation.
 
 Counterpart of `acas2d_tpu/ppo/learner.py` on its fused path
 (`fused_rollout=True, fused_update=True`, with or without
-`fused_update_packed`): the rollout is n_steps/K launches of the
+`fused_update_packed` and `fused_update_bf16`): the rollout is n_steps/K launches of the
 policy-in-kernel rollout (ops/policy_rollout.py), and every minibatch
 gradient is one launch of the fused PPO-gradient kernel (ops/ppo_grads.py).
 The update (`ppo_update_members`) and the optimizer work on a leading
@@ -218,7 +218,7 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
     cfg.shuffle_block rows with that member's generator (block 1 is SB3's
     row shuffle); `perms[e]` ((P, N / block) indices) replaces epoch e's
     draws.  Every minibatch step of all members is one launch of the
-    gradient kernel.  Metrics are (P,) means over the steps."""
+    gradient kernel, with bf16 operands under cfg.fused_update_bf16.  Metrics are (P,) means over the steps."""
     P, N = data.shape[:2]
     block = cfg.shuffle_block
     blocks = data.view(P, N // block, block, data.shape[-1])
@@ -237,7 +237,8 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
             grads, aux = ppo_minibatch_grads_members(
                 params, mbs[:, j], clip_range=cfg.clip_range,
                 vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
-                normalize_advantage=cfg.normalize_advantage)
+                normalize_advantage=cfg.normalize_advantage,
+                bf16=cfg.fused_update_bf16)
             updates, opt_state = optimizer.update(grads, opt_state)
             params = params + updates
             for k, v in aux.items():
@@ -277,7 +278,7 @@ def check_ported(cfg: PPOConfig) -> None:
     training steps (solo and population) call it first."""
     unsupported = [f"{name}={getattr(cfg, name)}" for name, ported in (
         ("fused_rollout", True), ("fused_update", True),
-        ("fused_update_bf16", False), ("update_remat", False))
+        ("update_remat", False))
         if getattr(cfg, name) != ported]
     if unsupported:
         raise NotImplementedError(

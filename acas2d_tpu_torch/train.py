@@ -33,11 +33,13 @@ stage's top snapshots.  `global_step` counts each member's env-steps;
 The fused paths are on by default (`--no-fused-rollout` and
 `--no-fused-update` ask for the unfused ones, which are not ported yet).
 `--fused-update-packed` is the fused update in the port (its parameters
-are always one flat vector in the kernel's layout).  Options the port does
-not implement yet are refused with an error, so a JAX command line never
-silently means something else: `--fused-update-bf16` maps onto its
-`PPOConfig` field, which `learner.check_ported` refuses, and flags with no
-port at all (`--checkpoint-every`, `--resume`) are unknown to the parser.
+are always one flat vector in the kernel's layout), and
+`--fused-update-bf16` rounds the gradient kernel's product operands to
+bf16.  Options the port does not implement yet are refused with an error,
+so a JAX command line never silently means something else: the unfused
+paths map onto their `PPOConfig` fields, which `learner.check_ported`
+refuses, and flags with no port at all (`--checkpoint-every`, `--resume`)
+are unknown to the parser.
 """
 
 from __future__ import annotations
@@ -94,7 +96,9 @@ def parse_args(argv=None):
                         "parameters are always one flat vector in the "
                         "kernel's layout). Implies --fused-update")
     p.add_argument("--fused-update-bf16", action="store_true",
-                   help="bf16 operands in the update kernel (not ported yet)")
+                   help="round the operands of the update kernel's matrix "
+                        "products to bf16 (float32 sums); solo and "
+                        "population runs")
     p.add_argument("--population", type=int, default=0, metavar="P",
                    help="train P member policies side by side (member i as "
                         "a solo run with --seed seed+i), one kernel launch "

@@ -30,8 +30,29 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      update;
   6. exact evaluation (float64 env) of artifacts/ppo_tpu_e_polished_best.npz,
      100 episodes, held to its committed record;
-  7. kernel and plain-version times from CUDA events, each kernel's bound,
-     the card's name and power limit.
+  7. the env-only rollout kernel against its plain version (B = 32,768 envs
+     flown part-way so that collisions, goals and timeouts occur, T = 256,
+     random actions without and with the observation checksum, and zero
+     actions); its zero-action run against the port's general engine
+     (B = 1024, T = 64); and a 5-sigma comparison of outcome rates with the
+     engine under random actions (B = 65,536, T = 2048);
+  8. the env-stepping headline of `python -m acas2d_tpu_torch.bench` at
+     its full size (B = 262,144, T = 256): its two measures, without and
+     with obs, each with the launch counters read around it (one warm-up
+     plus 8 x 3 launches), and its JSON line; then the bench's `--train`
+     mode;
+  9. the gradient kernel's bf16 variant against its plain version, solo
+     (N = 65,536) and member-batched (P = 32 x N = 32,768), its deviation
+     from the f32 kernel, and the precision probe, whose answer must agree
+     with that deviation; then bf16 training, solo (`train --preset tpu
+     --fused-update-bf16`, 3 iterations) and one population iteration, with
+     the launch counters read around each;
+ 10. kernel and plain-version times from CUDA events, each kernel's bound,
+     the card's name and power limit.  The env rollout is first held
+     against its plain version at the headline shape, on the state each
+     of the bench's measures left, then timed in chained launches from
+     there: the kernel alone, and the wall per launch as the bench
+     launches, whose difference is the card's idle share.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -53,13 +74,24 @@ from acas2d_tpu_torch.envs import vector
 from acas2d_tpu_torch.models.actor_critic import (ActorCritic, N_PARAMS,
                                                   OBS_DIM, HIDDEN, flatten,
                                                   gaussian_log_prob)
-from acas2d_tpu_torch.ops import _cuda, policy_rollout, ppo_grads
+from acas2d_tpu_torch.ops import (_cuda, env_rollout, policy_rollout,
+                                  ppo_grads, precision_probe)
 from acas2d_tpu_torch.ops import step_math as sm
 from acas2d_tpu_torch.ppo.config import tpu_default
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit):
+# memory, float32 on the CUDA cores (an FMA counted as 2), bf16 and float64
+# on the tensor cores.  The special-function units (IEEE sine, cosine,
+# square root and division counted as one op each) and the 32-bit integer
+# units give 16 and 64 results per clock per SM against the float32
+# units' 128 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0), so their peaks are 16/256 and 64/256
+# of the float32 flop rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_OPS_PER_S = {"f32": PEAK_F32_FLOP_PER_S, "bf16": 989e12, "f64": 67e12,
+                  "sfu": PEAK_F32_FLOP_PER_S * 16 / 256,
+                  "int": PEAK_F32_FLOP_PER_S * 64 / 256}
 K = 16                           # rollout steps per launch (fused_chunk)
 SOLO_B, SOLO_N = 2048, 65536     # solo main path: envs, minibatch rows
 POP, POP_B, POP_N = 32, 1024, 32768   # population: members, envs, rows
@@ -86,6 +118,40 @@ GRAD_REL_TOL = 1e-4
 #  flagship eval: the float32 policy's matmuls sum in another order on the
 #  card than on the CPU where the record was made; the record has 2 decimals.
 EVAL_TOL = 0.05
+#  env-only rollout: `env_rollout.agreement` states the rule (an ulp a step
+#  of FMA drift, sums growing with T, at most 0.1% of envs flipping a
+#  float32 threshold).
+ENV_B, ENV_T = 32768, 256              # kernel vs plain version
+ZERO_B, ZERO_T = 1024, 64              # zero actions vs the engine
+STAT_B, STAT_T = 65536, 2048           # outcome rates vs the engine
+HEADLINE_B, HEADLINE_T = 262144, 256   # bench.py's headline shape
+SEED = 7                               # the bench's seed
+CHAIN = 24                             # timed launches continuing the bench
+#  bf16 gradients vs their plain version: both round the same operands, but
+#  a tanh output the card computes an ulp away from the CPU can round to the
+#  neighbouring bf16 value (2^-8 relative).  A block that is one sum with
+#  cancellation (a head bias) then errs by far more than its own small
+#  value suggests, and the pi tower's blocks are ~1e-5 at these weights, so
+#  no one relative or absolute bound fits every block.  Accuracy: each
+#  block of the bf16 kernel must be at least 1 / BF16_VS_F32 times closer
+#  to the plain bf16 version than the f32 kernel is, or within the f32
+#  kernel's own GRAD_REL_TOL of its tower's largest gradient (summation
+#  order).  Separation: on the SEPARATING blocks, summed over members, the
+#  bf16 kernel must be 1 / BF16_VS_F32 times closer to the plain bf16
+#  version than the f32 kernel is, so an unrounded result fails there
+#  (it would sit at 1.0).  Those are the blocks whose every entry is a
+#  sum over the rows of rounded products; the head biases and log_std are
+#  one number each, which the rounding moves by less than their float32
+#  summation order does, and are held to accuracy only.
+#  Deviation from the f32 kernel: more than 0, and at most the JAX unit
+#  test's 3e-2 x scale + 5e-6 (tests/test_pallas_update.py:159; the cap of
+#  pallas_tpu_check.py:232 with the floor that test adds for near-zero
+#  sums), where the scale of a block is the largest |gradient| of the JAX
+#  gradient leaf it is: for a population, the (P, ...) leaf of the packed
+#  members (vmap of ppo_minibatch_grads_packed), so over all members.
+BF16_VS_F32, BF16_DEV_MAX, BF16_DEV_FLOOR = 0.1, 3e-2, 5e-6
+SEPARATING = [f"{t}.{nm}" for t in ("pi", "vf")
+              for nm in ("w1", "b1", "w2", "b2", "w_head")]
 
 
 def check(cond, msg: str = "check failed") -> None:
@@ -107,9 +173,12 @@ def cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, n_flop: float):
+def bound_ops(n_bytes: float, ops):
+    """The least time (ms) of a call that moves n_bytes and does `ops`
+    ({unit: count}), and what binds it: the larger of the bytes' time and
+    the busiest unit's time, each at its peak rate."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flop / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = max(n / PEAK_OPS_PER_S[unit] * 1e3 for unit, n in ops.items())
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -288,16 +357,25 @@ def phase_grads(dev, P, n):
 
 # ------------------------------------------------------------------ phase 4
 
+COUNTED = {"policy_rollout": policy_rollout.fused_policy_rollout_members,
+           "ppo_grads": ppo_grads.ppo_minibatch_grads_members,
+           "env_rollout": env_rollout.fused_rollout,
+           "precision_probe": precision_probe.precision_probe}
+
+
 def reset_counts():
-    policy_rollout.fused_policy_rollout_members.launches = 0
-    ppo_grads.ppo_minibatch_grads_members.launches = 0
+    for fn in COUNTED.values():
+        fn.launches = 0
 
 
 def read_counts():
     torch.cuda.synchronize()
-    return {"policy_rollout":
-            policy_rollout.fused_policy_rollout_members.launches,
-            "ppo_grads": ppo_grads.ppo_minibatch_grads_members.launches}
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def expected(**launches):
+    """A full launch record: the given counts, every other kernel 0."""
+    return {name: launches.get(name, 0) for name in COUNTED}
 
 
 def check_finite(rows):
@@ -314,7 +392,8 @@ def phase_main_path():
     rows = train.run(train.parse_args(argv))
     launches = read_counts()
     print(f"[main] launches over {ITERS} iterations: {launches}")
-    check(launches == {"policy_rollout": 8 * ITERS, "ppo_grads": 40 * ITERS})
+    check(launches == expected(policy_rollout=8 * ITERS,
+                               ppo_grads=40 * ITERS))
     check_finite(rows)
     steady = [r["steps_per_s"] for r in rows[1:]]
     it_s = [r["seconds"] for r in rows[1:]]
@@ -373,8 +452,8 @@ def phase_population():
         print(f"[population] launches over {iters} iterations "
               f"({ITERS} at P={POP}, 1 at P={POLISH_POP}): {launches}")
         check(len(rows) == iters, f"{len(rows)} rows")
-        check(launches == {"policy_rollout": 8 * iters,
-                           "ppo_grads": 40 * iters})
+        check(launches == expected(policy_rollout=8 * iters,
+                                   ppo_grads=40 * iters))
         check_finite(rows)
         for r in rows:
             evals = (f", eval_return_max {r['eval_return_max']:.2f}"
@@ -441,6 +520,319 @@ def phase_eval():
 
 # ------------------------------------------------------------------ phase 7
 
+def env_state(dev, B, seed=5):
+    """B fresh spawns on `dev` flown part-way by the env-only kernel (the
+    first half 320 steps, when random-action collisions begin; the second
+    576, when goals do), every third step counter then moved to 940-1000
+    so that timeouts occur too: the nine flat (B,) state arrays."""
+    gen = torch.Generator().manual_seed(seed)
+    es, _ = vector.reset_batch(B, DEFAULT_PARAMS, gen, torch.float32, dev)
+    st = env_rollout.flat_state(es)
+    half = B // 2
+    parts = [env_rollout.fused_rollout({k: v[sl] for k, v in st.items()},
+                                       seed, n)[0]
+             for sl, n in ((slice(0, half), 320), (slice(half, B), 576))]
+    st = {k: torch.cat([p[k] for p in parts]) for k in env_rollout.STATE_KEYS}
+    late = torch.randint(940, DEFAULT_PARAMS.max_steps + 1, (B,),
+                         generator=gen, dtype=torch.int32).to(dev)
+    st["steps"][::3] = late[::3]
+    return st
+
+
+def compare_env(tag, got, want, T):
+    """The env rollout kernel's outputs against the plain version's by
+    `env_rollout.agreement`: prints the flipped envs and every field, then
+    checks.  Returns the largest float error."""
+    flipped, errs, failed = env_rollout.agreement(got, want, T)
+    g = {k: got[k].to(want[k].device) for k in ("steps", "episodes",
+                                                 "obs_sum")}
+    print(f"[{tag}] {len(flipped)} of {want['steps'].numel()} envs flipped "
+          f"a threshold" + "".join(
+              f"; env {e}: steps {int(g['steps'][e])} vs "
+              f"{int(want['steps'][e])}, episodes {int(g['episodes'][e])} "
+              f"vs {int(want['episodes'][e])}, obs_sum "
+              f"{float(g['obs_sum'][e]):.4f} vs {float(want['obs_sum'][e]):.4f}"
+              for e in flipped[:3].tolist()))
+    for k, (err, tol) in errs.items():
+        print(f"[{tag}] {k}: max abs err {err:.3e} (tol {tol:.3e})")
+    check(not failed, f"{tag}: {failed} differ from the plain version")
+    return max(err for err, _ in errs.values())
+
+
+def phase_env_rollout(dev):
+    """The public wrapper on CUDA tensors (the kernel) against the same call
+    on copies on the CPU (the plain version), in the three modes."""
+    st = env_state(dev, ENV_B)
+    max_err = 0.0
+    for mode in (dict(), dict(with_obs=True),
+                 dict(zero_actions=True, with_obs=True)):
+        tag = "env rollout " + ("zero" if mode.get("zero_actions")
+                                else "random") + (
+                                    " obs" if mode.get("with_obs") else "")
+        gs, gstats = env_rollout.fused_rollout(st, 11, ENV_T, **mode)
+        ws, wstats = env_rollout.fused_rollout(on_cpu(st), 11, ENV_T, **mode)
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare_env(tag, {**gs, **gstats},
+                                           {**ws, **wstats}, ENV_T))
+        ends = {k: int(wstats[k].sum()) for k in
+                ("episodes", "goals", "collisions")}
+        print(f"[{tag}] B={ENV_B} T={ENV_T}: episode ends {ends}")
+        check(ends["goals"] > 0 and ends["collisions"] > 0
+              and ends["episodes"] > ends["goals"] + ends["collisions"],
+              "every kind of episode end should occur")
+        if not mode.get("with_obs"):
+            check(float(gstats["obs_sum"].abs().max()) == 0.0,
+                  "obs_sum must be 0 without obs")
+    return max_err
+
+
+def engine_run(dev, B, T, seed, zero_actions):
+    """The port's general engine (`vector.step_autoreset_batch`, eager) from
+    a seeded reset: (initial state, final state, summed rewards, episode
+    ends, goals, collisions)."""
+    s0, _ = vector.reset_batch(B, DEFAULT_PARAMS,
+                               torch.Generator().manual_seed(seed),
+                               torch.float32, dev)
+    act_gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    spawn_gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    s = s0
+    rsum = torch.zeros(B, device=dev)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    for _ in range(T):
+        a = (torch.zeros(B, device=dev) if zero_actions else
+             torch.rand(B, generator=act_gen, device=dev) * 2.0 - 1.0)
+        s, out = vector.step_autoreset_batch(s, a, DEFAULT_PARAMS, spawn_gen)
+        rsum = rsum + out.reward
+        counts += torch.stack([out.done.sum(),
+                               ((out.outcome == 1) & out.done).sum(),
+                               ((out.outcome == 2) & out.done).sum()])
+    return s0, s, rsum, [int(c) for c in counts.cpu()]
+
+
+def phase_env_engine(dev):
+    """Kernel vs the port's general engine on the card
+    (pallas_tpu_check.py:53-134): zero actions for 64 steps from fresh
+    spawns (no episode ends), then outcome rates under random actions."""
+    s0, s, rsum, _ = engine_run(dev, ZERO_B, ZERO_T, 42, zero_actions=True)
+    st, stats = env_rollout.fused_rollout(env_rollout.flat_state(s0), 7,
+                                          ZERO_T, zero_actions=True)
+    check(torch.equal(st["steps"], s.steps), "zero-action step counters")
+    for name, a, b in (("px", s.px, st["px"]), ("py", s.py, st["py"]),
+                       ("psi", s.ppsi, st["psi"]),
+                       ("tx", s.tx[:, 0], st["tx"]),
+                       ("ty", s.ty[:, 0], st["ty"])):
+        err = float((a - b).abs().max())
+        print(f"[env parity] zero actions, {name}: max abs err {err:.3e}")
+        check(err <= 2e-2, f"zero-action {name} err {err}")
+    r_err = float((rsum - stats["reward_sum"]).abs().max())
+    r_tol = 2e-3 + 2e-3 * float(rsum.abs().max())
+    print(f"[env parity] zero actions, reward_sum: max abs err {r_err:.3e} "
+          f"(tol {r_tol:.3e})")
+    check(r_err <= r_tol, "zero-action reward sums")
+
+    B, T = STAT_B, STAT_T
+    s0, _, _, (ep_x, goal_x, coll_x) = engine_run(dev, B, T, 5, False)
+    _, pstats = env_rollout.fused_rollout(env_rollout.flat_state(s0), 11, T)
+    ep_p, goal_p, coll_p = (int(pstats[k].sum()) for k in
+                            ("episodes", "goals", "collisions"))
+    print(f"[env statistics] B={B} T={T}: kernel episodes {ep_p}, goals "
+          f"{goal_p}, collisions {coll_p}; engine {ep_x}, {goal_x}, {coll_x}")
+    for key, a, b in (("goal_rate", goal_p / ep_p, goal_x / ep_x),
+                      ("collision_rate", coll_p / ep_p, coll_x / ep_x)):
+        pbar = (a + b) / 2
+        sigma = math.sqrt(max(pbar * (1 - pbar), 1e-9)
+                          * (1 / ep_p + 1 / ep_x))
+        print(f"[env statistics] {key}: kernel {a:.5f} engine {b:.5f} "
+              f"(5 sigma {5 * sigma:.5f})")
+        check(abs(a - b) <= 5 * sigma + 1e-4, f"{key} outside 5 sigma")
+    check(abs(ep_p - ep_x) <= 0.02 * max(ep_p, ep_x),
+          "episode counts differ by more than 2%")
+
+
+# ------------------------------------------------------------------ phase 8
+
+def phase_bench():
+    """The headline of `python -m acas2d_tpu_torch.bench` at its full size:
+    its two measures (`bench.measure_fused` without and with obs, as
+    `bench.headline_main` calls them), each with the launch counters read
+    around it, and its JSON line; then its --train mode, with the counters
+    around it.  Returns {row: (launches, the state the measure's last
+    launch left, with_obs)}."""
+    from acas2d_tpu_torch import bench
+    per_measure = 1 + 8 * 3              # warm-up + iters x repeats
+    out, rates = {}, {}
+    for name, with_obs in (("env_rollout", False), ("env_rollout_obs", True)):
+        reset_counts()
+        rates[name], st = bench.measure_fused(with_obs=with_obs,
+                                              device="cuda",
+                                              return_state=True)
+        launches = read_counts()
+        print(f"[bench] launches over the headline's measure "
+              f"with_obs={with_obs}: {launches}")
+        check(launches == expected(env_rollout=per_measure),
+              f"{launches}, expected {per_measure} env_rollout launches")
+        out[name] = (launches["env_rollout"], st, with_obs)
+    print(json.dumps(bench.headline_record(
+        rates["env_rollout"], rates["env_rollout_obs"], torch.device("cuda"))))
+    reset_counts()
+    bench.main(["--train"])
+    launches = read_counts()
+    print(f"[bench] launches over --train (2 variants x 5 iterations): "
+          f"{launches}")
+    check(launches == expected(policy_rollout=2 * 5 * 8,
+                               ppo_grads=2 * 5 * 40))
+    return out
+
+
+# ------------------------------------------------------------------ phase 9
+
+BLOCK_NAMES = [f"{t}.{nm}" for t in ("pi", "vf")
+               for nm in ("w1", "b1", "w2", "b2", "w_head", "b_head")] + [
+                   "log_std"]
+BLOCK_SIZES = [HIDDEN * OBS_DIM, HIDDEN, HIDDEN * HIDDEN, HIDDEN, HIDDEN,
+               1] * 2 + [1]
+
+
+def block_errs(g, ref):
+    """{block: [(max |g - ref|, max |ref| of the block, max |ref| of its
+    tower) of each member]}; log_std is its own tower."""
+    out = {name: [] for name in BLOCK_NAMES}
+    n_tower = sum(BLOCK_SIZES[:6])
+    for gm, rm in zip(g, ref):
+        towers = (float(rm[:n_tower].abs().max()),
+                  float(rm[n_tower:2 * n_tower].abs().max()),
+                  float(rm[-1].abs()))
+        for i, (name, gb, rb) in enumerate(zip(
+                BLOCK_NAMES, gm.split(BLOCK_SIZES), rm.split(BLOCK_SIZES))):
+            out[name].append((float((gb - rb).abs().max()),
+                              float(rb.abs().max()), towers[i // 6]))
+    return out
+
+
+def phase_bf16_grads(dev, P, n):
+    """The public wrapper with bf16=True on the card against the same call
+    on the CPU, and against the f32 kernel on the same inputs.  Returns
+    (the kernel's operands, the max abs error, whether the bf16 grads equal
+    the f32 ones bit for bit)."""
+    cfg = tpu_default()
+    params, mb = grads_inputs(dev, P, n)
+    kw = dict(clip_range=cfg.clip_range, vf_coef=cfg.vf_coef,
+              ent_coef=cfg.ent_coef, normalize_advantage=True)
+    g, aux = ppo_grads.ppo_minibatch_grads_members(params, mb, bf16=True,
+                                                   **kw)
+    g32, _ = ppo_grads.ppo_minibatch_grads_members(params, mb, **kw)
+    w, waux = ppo_grads.ppo_minibatch_grads_members(params.cpu(), mb.cpu(),
+                                                    bf16=True, **kw)
+    torch.cuda.synchronize()
+    g, g32 = g.cpu(), g32.cpu()
+    tag = "bf16 grads" if P == 1 else "bf16 member grads"
+    errs, f32_errs = block_errs(g, w), block_errs(g32, w)
+    for name in BLOCK_NAMES:
+        # accuracy: the member with the largest error for its allowance
+        share, err, dev, tower = max(
+            (e / max(BF16_VS_F32 * d, GRAD_REL_TOL * t), e, d, t)
+            for (e, _, t), (d, _, _) in zip(errs[name], f32_errs[name]))
+        line = (f"[{tag}] {name}: bf16 kernel vs plain {err:.3e}, f32 "
+                f"kernel vs plain bf16 {dev:.3e}, tower scale {tower:.3e} "
+                f"({share:.2f} of the allowance)")
+        sep = None
+        if name in SEPARATING:
+            sep = (sum(e for e, _, _ in errs[name])
+                   / max(sum(d for d, _, _ in f32_errs[name]), 1e-30))
+            line += f"; separation {sep:.3e} (at most {BF16_VS_F32})"
+        print(line)
+        check(share <= 1.0, f"bf16 gradient {name} err {err}")
+        check(sep is None or sep <= BF16_VS_F32,
+              f"bf16 gradient {name} is not closer to the plain bf16 "
+              f"version than the f32 kernel is")
+    for key in sorted(waux):
+        a, b = aux[key].cpu().double(), waux[key].double()
+        rel = float(((a - b).abs() / (b.abs() + 1e-6)).max())
+        print(f"[{tag}] {key} rel err {rel:.3e}")
+        check(rel < GRAD_REL_TOL, f"bf16 aux {key} differs")
+    devs = []
+    for name, per_member in block_errs(g, g32).items():
+        d = max(e for e, _, _ in per_member)
+        scale = max(sc for _, sc, _ in per_member)      # the leaf's scale
+        devs.append((d / (BF16_DEV_MAX * scale + BF16_DEV_FLOOR),
+                     d / scale, name))
+    share, rel, name = max(devs)
+    print(f"[{tag}] P={P} N={n}: deviation from the f32 kernel, worst block "
+          f"{name} at {rel:.3e} of its scale ({share:.2f} of the cap "
+          f"3e-2 x scale + 5e-6); worst weight block at "
+          f"{max(r for _, r, nm in devs if '.w' in nm):.3e}")
+    check(share <= 1.0, "bf16 deviates from f32 beyond 3e-2 x scale + 5e-6")
+    check(max(rel for _, rel, _ in devs) > 0.0, "bf16 equals f32")
+    data = ppo_grads.normalize_adv_column(mb).contiguous()
+    consts = ppo_grads._constants(n, cfg.clip_range, cfg.vf_coef)
+    return ((params, data, consts, cfg.ent_coef, True),
+            float((g - w).abs().max()), bool(torch.equal(g, g32)))
+
+
+def phase_probe(bf16_equals_f32: bool):
+    """The probe kernel against its plain version, on its JAX input and on
+    random operands; then its answer, with the launch counter around it,
+    which must explain whether the bf16 grads equal the f32 ones
+    (pallas_tpu_check.py:264-269).  Returns (operands for the timing, max
+    abs error, launches of the answer)."""
+    a, b = precision_probe.probe_inputs("cuda")
+    gen = torch.Generator().manual_seed(3)
+    x, y = (torch.randn(128, 128, generator=gen) for _ in range(2))
+    err = 0.0
+    for u, v in ((a, b), (x.cuda(), y.cuda())):
+        got = precision_probe.precision_probe(u, v)
+        want = precision_probe.precision_probe(u.cpu(), v.cpu())
+        err = max(err, max(float((g.cpu() - w).abs().max())
+                           for g, w in zip(got, want)))
+    print(f"[probe] kernel vs plain: max abs err {err:.3e}")
+    check(err <= 1e-4, "probe kernel differs from its plain version")
+    o_def, o_bf, o_hi = (o[0, 0].item() for o in
+                         precision_probe.precision_probe(a, b))
+    reset_counts()
+    quantizes = precision_probe.quantizes_operands("cuda")
+    launches = read_counts()
+    check(launches == expected(precision_probe=1))
+    print(f"[probe] quantizes={quantizes}: o_def {o_def!r}, o_bf {o_bf!r}, "
+          f"o_hi {o_hi!r}; bf16 grads bit-identical to f32: "
+          f"{bf16_equals_f32}")
+    check(quantizes == bf16_equals_f32,
+          "the probe contradicts the bf16-vs-f32 deviation")
+    return (x.cuda(), y.cuda()), err, launches["precision_probe"]
+
+
+def phase_bf16_training():
+    """`train --preset tpu --fused-update-bf16` for 3 iterations, then one
+    iteration of the population command with --fused-update-bf16 (the
+    in-training eval cut to 4 episodes, no re-eval, no polish): the launch
+    counters around each."""
+    from acas2d_tpu_torch import train
+    argv = ["--preset", "tpu", "--fused-update-bf16",
+            "--total-steps", str(ITERS * SOLO_B * 128)]
+    reset_counts()
+    rows = train.run(train.parse_args(argv))
+    solo = read_counts()
+    print(f"[bf16 train] launches over {ITERS} iterations: {solo}")
+    check(solo == expected(policy_rollout=8 * ITERS, ppo_grads=40 * ITERS))
+    check_finite(rows)
+    print(f"[bf16 train] env-steps/s after the first iteration: "
+          f"{[round(r['steps_per_s']) for r in rows[1:]]}")
+    with tempfile.TemporaryDirectory() as out:
+        argv = (POP_ARGV[:POP_ARGV.index("--total-steps")]
+                + ["--total-steps", str(POP_B * 128), "--eval-episodes", "4",
+                   "--reval-episodes", "0", "--fused-update-bf16",
+                   "--out-dir", out, "--run-name", "pop_bf16"])
+        reset_counts()
+        prow = train.run(train.parse_args(argv))
+        pop = read_counts()
+    print(f"[bf16 train] population launches over 1 iteration at P={POP}: "
+          f"{pop}")
+    check(pop == expected(policy_rollout=8, ppo_grads=40))
+    check_finite(prow)
+    return solo, pop
+
+
+# ----------------------------------------------------------------- phase 10
+
 MLP_FLOP = 2 * 2 * (HIDDEN * OBS_DIM + HIDDEN * HIDDEN + HIDDEN)  # env-step
 # per row: forward 2 x 4,672 MAC; backward per tower 8,832 MAC
 GRAD_FLOP = 2 * (2 * 4672 + 2 * 8832)
@@ -454,7 +846,7 @@ def time_rollout(args):
     n_bytes = 4 * (8 * PB + PB + 8 * PB + P * N_PARAMS              # inputs
                    + 9 * PB + PB + 8 * PB + K * PB * 8 + 6 * K * PB
                    + 2 * K * PB)
-    return ms, plain_ms, bound(n_bytes, K * PB * MLP_FLOP)
+    return ms, plain_ms, bound_ops(n_bytes, {"f32": K * PB * MLP_FLOP})
 
 
 def time_grads(args):
@@ -463,35 +855,127 @@ def time_grads(args):
     ms = cuda_time_ms(lambda: ppo_grads._grads_cuda(*args), 20)
     plain_ms = cuda_time_ms(lambda: ppo_grads._grads_plain_members(*args), 5)
     n_bytes = 4 * (P * n * 13 + 2 * P * N_PARAMS + 4 * P)
-    return ms, plain_ms, bound(n_bytes, P * n * GRAD_FLOP)
+    # bf16 operands with float32 sums: what the tensor cores do at 989
+    # TFLOP/s, so that is the least time of the same work
+    unit = "bf16" if len(args) > 4 and args[4] else "f32"
+    return ms, plain_ms, bound_ops(n_bytes, {unit: P * n * GRAD_FLOP})
 
 
-def phase_timing(roll, grads, launches, runs):
-    """roll / grads: {"solo": (args, max_err), "members": ...}; launches
-    and runs (iteration ms, phase ms) per main path."""
+# Operations of csrc/env_rollout.cu, counted from its source (step_math.cuh
+# included) by unit: "f32" one per float32 add, multiply, compare, select,
+# min/max or floor; "sfu" one per IEEE sinf, cosf, sqrtf or division;
+# "int" one per 32-bit integer op of the hash and the counters.
+ENV_STEP_OPS = {"f32": 218, "sfu": 25, "int": 9}      # every env-step
+ENV_ACTION_OPS = {"f32": 3, "int": 14}                # random actions only
+ENV_OBS_OPS = {"f32": 174, "sfu": 23}                 # with_obs only
+ENV_RESPAWN_OPS = {"f32": 29, "sfu": 2, "int": 42}    # per episode end
+
+
+def env_rollout_ops(B, T, episodes, zero_actions, with_obs):
+    steps = B * T
+    ops = {u: n * steps for u, n in ENV_STEP_OPS.items()}
+    for table, n in ((ENV_ACTION_OPS, 0 if zero_actions else steps),
+                     (ENV_OBS_OPS, steps if with_obs else 0),
+                     (ENV_RESPAWN_OPS, episodes)):
+        for u, k in table.items():
+            ops[u] = ops.get(u, 0) + k * n
+    return ops
+
+
+def chain(st, with_obs, events=None):
+    """CHAIN more launches continuing a bench measure's chain, through the
+    public wrapper as the bench makes them, ending in the host transfer
+    that ends a bench repeat.  With `events` (a pair of CUDA events for
+    each launch) the card first sleeps ~0.1 s, so that the launches queue
+    behind the sleep and run back to back, each between its events.
+    Returns (the state left, the launches' episode counts, host ms per
+    launch)."""
+    episodes = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if events:
+        torch.cuda._sleep(200_000_000)
+    for i in range(CHAIN):
+        if events:
+            events[i][0].record()
+        st, stats = env_rollout.fused_rollout(st, SEED, HEADLINE_T,
+                                              with_obs=with_obs)
+        if events:
+            events[i][1].record()
+        episodes.append(stats["episodes"])
+    stats["obs_sum" if with_obs else "reward_sum"].cpu()
+    return st, episodes, (time.perf_counter() - t0) / CHAIN * 1e3
+
+
+def time_env_rollout(args):
+    """args: (the state a bench measure's last launch left, with_obs), at
+    the headline shape.  On that state, the kernel against its plain
+    version (both on the card; the plain version's second run timed).
+    Then, from where that leaves off, the kernel's time in a chain: the
+    card is held by a sleep while CHAIN chained launches queue behind it,
+    so that the CUDA events around each launch time the kernel alone; then
+    CHAIN more launches as the bench makes them, on the host clock.  The
+    difference is the card's idle share of the bench's wall time.  The
+    bound counts the chain's episode ends (the respawns it runs).
+    Returns (kernel ms, plain ms, bound, max abs err)."""
+    st, with_obs = args
+    B, T = st["px"].shape[0], HEADLINE_T
+    ops_args = (sm.kernel_constants(DEFAULT_PARAMS), DEFAULT_PARAMS.max_steps,
+                st, SEED, T, False, with_obs)
+    got = env_rollout._env_rollout_cuda(*ops_args)
+    want = env_rollout._env_rollout_plain(*ops_args)
+    torch.cuda.synchronize()
+    tag = "env rollout headline" + (" obs" if with_obs else "")
+    err = compare_env(tag, {**got[0], **got[1]}, {**want[0], **want[1]}, T)
+    del want
+    ends = {k: int(got[1][k].sum()) for k in ("episodes", "goals",
+                                               "collisions")}
+    print(f"[{tag}] B={B} T={T}, from the bench's chained state: episode "
+          f"ends {ends}")
+    plain_ms = cuda_time_ms(lambda: env_rollout._env_rollout_plain(*ops_args),
+                            1, warmup=0)
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(CHAIN)]
+    st, episodes, _ = chain(got[0], with_obs, events)
+    ms = sum(e0.elapsed_time(e1) for e0, e1 in events) / CHAIN
+    _, _, wall_ms = chain(st, with_obs)
+    print(f"[{tag}] chained launch: kernel {ms:.4f} ms (CUDA events, launches "
+          f"queued), {wall_ms:.4f} ms on the host clock as the bench "
+          f"launches; the card idles {1 - ms / wall_ms:.1%} of the bench's "
+          f"wall time")
+    n_bytes = 4 * B * (9 + 14)             # nine arrays in, fourteen out
+    per_launch = sum(int(e.sum()) for e in episodes) / CHAIN
+    ops = env_rollout_ops(B, T, per_launch, False, with_obs)
+    return ms, plain_ms, bound_ops(n_bytes, ops), err
+
+
+def time_probe(args):
+    x, y = args
+    ms = cuda_time_ms(lambda: precision_probe._probe_cuda(x, y), 100)
+    plain_ms = cuda_time_ms(lambda: precision_probe._probe_plain(x, y), 100)
+    matmul_ms = cuda_time_ms(lambda: torch.matmul(x, y), 100)
+    print(f"[time] note: torch.matmul alone (o_def's product, TF32 off) "
+          f"{matmul_ms:.4f} ms")
+    flop = 2 * 128 ** 3
+    return ms, plain_ms, bound_ops(4 * 5 * 128 * 128,
+                                   {"f32": flop, "bf16": flop, "f64": flop})
+
+
+def phase_timing(rows_in, runs):
+    """rows_in: (name, timer, args, max_err, launches, source, replaces) per
+    kernel row; runs: (iteration ms, phase ms) per training main path.  A
+    timer returns (ms, plain ms, (bound ms, bound by)) and may add the
+    largest error of a comparison it made, which the row's error takes in."""
     rows = []
-    spec = (("policy_rollout", "solo", roll, time_rollout,
-             "acas2d_tpu_torch/csrc/policy_rollout.cu",
-             "acas2d_tpu/ops/pallas_policy.py:67", "policy_rollout"),
-            ("policy_rollout_members", "members", roll, time_rollout,
-             "acas2d_tpu_torch/csrc/policy_rollout.cu",
-             "acas2d_tpu/ops/pallas_policy.py:67", "policy_rollout"),
-            ("ppo_grads", "solo", grads, time_grads,
-             "acas2d_tpu_torch/csrc/ppo_grads.cu",
-             "acas2d_tpu/ops/pallas_update.py:60", "ppo_grads"),
-            ("ppo_grads_members", "members", grads, time_grads,
-             "acas2d_tpu_torch/csrc/ppo_grads.cu",
-             "acas2d_tpu/ops/pallas_update.py:60", "ppo_grads"))
     per_launch = {}
-    for name, path, table, timer, source, replaces, counter in spec:
-        args, err = table[path]
-        ms, plain_ms, (b_ms, b_by) = timer(args)
+    for name, timer, args, err, launches, source, replaces in rows_in:
+        ms, plain_ms, (b_ms, b_by), *more = timer(args)
+        err = max([err] + more)
         per_launch[name] = ms
         print(f"[time] {name} {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
               f"{b_ms:.4f} ms by {b_by}; {ms / b_ms:.1f}x the bound)")
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces,
-                     "launches": launches[path][counter],
+                     "replaces": replaces, "launches": launches,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     for path, roll_name, grad_name in (
@@ -504,6 +988,9 @@ def phase_timing(roll, grads, launches, runs):
               f"phase {phases['update']:.2f} ms holds "
               f"{40 * per_launch[grad_name]:.2f} ms, GAE "
               f"{phases['gae']:.2f} ms holds none")
+    for name in ("env_rollout", "env_rollout_obs"):
+        rate = HEADLINE_B * HEADLINE_T / per_launch[name] * 1e3
+        print(f"[time] {name}: {rate:.4e} env-steps/s in kernel time")
     return rows
 
 
@@ -521,15 +1008,50 @@ def main() -> int:
             "members": phase_rollout(dev, POP, POP_B)}
     grads = {"solo": phase_grads(dev, 1, SOLO_N),
              "members": phase_grads(dev, POP, POP_N)}
+    env_err = phase_env_rollout(dev)
+    phase_env_engine(dev)
+    bf16 = {"solo": phase_bf16_grads(dev, 1, SOLO_N),
+            "members": phase_bf16_grads(dev, POP, POP_N)}
+    probe_args, probe_err, probe_launches = phase_probe(bf16["solo"][2])
     solo_launches, solo_it_s = phase_main_path()
     solo_phases = phase_breakdown()
     pop_launches, pop_it_s = phase_population()
     pop_phases = phase_population_breakdown()
+    bench_runs = phase_bench()
+    bf16_launches = phase_bf16_training()
     phase_eval()
+    cu, pt = "acas2d_tpu_torch/csrc/", "acas2d_tpu/ops/"
+    rows = [
+        ("policy_rollout", time_rollout, roll["solo"][0], roll["solo"][1],
+         solo_launches["policy_rollout"], cu + "policy_rollout.cu",
+         pt + "pallas_policy.py:67"),
+        ("policy_rollout_members", time_rollout, roll["members"][0],
+         roll["members"][1], pop_launches["policy_rollout"],
+         cu + "policy_rollout.cu", pt + "pallas_policy.py:67"),
+        ("ppo_grads", time_grads, grads["solo"][0], grads["solo"][1],
+         solo_launches["ppo_grads"], cu + "ppo_grads.cu",
+         pt + "pallas_update.py:60"),
+        ("ppo_grads_members", time_grads, grads["members"][0],
+         grads["members"][1], pop_launches["ppo_grads"], cu + "ppo_grads.cu",
+         pt + "pallas_update.py:60"),
+        ("ppo_grads_bf16", time_grads, bf16["solo"][0], bf16["solo"][1],
+         bf16_launches[0]["ppo_grads"], cu + "ppo_grads.cu",
+         pt + "pallas_update.py:60"),
+        ("ppo_grads_bf16_members", time_grads, bf16["members"][0],
+         bf16["members"][1], bf16_launches[1]["ppo_grads"],
+         cu + "ppo_grads.cu", pt + "pallas_update.py:60"),
+    ] + [
+        (name, time_env_rollout, (st, with_obs), env_err, launches,
+         cu + "env_rollout.cu", pt + "pallas_step.py:205")
+        for name, (launches, st, with_obs) in bench_runs.items()
+    ] + [
+        ("precision_probe", time_probe, probe_args, probe_err,
+         probe_launches, cu + "precision_probe.cu",
+         "scripts/pallas_tpu_check.py:244"),
+    ]
     kernels = phase_timing(
-        roll, grads, {"solo": solo_launches, "members": pop_launches},
-        {"solo": (solo_it_s * 1e3, solo_phases),
-         "members": (pop_it_s * 1e3, pop_phases)})
+        rows, {"solo": (solo_it_s * 1e3, solo_phases),
+               "members": (pop_it_s * 1e3, pop_phases)})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

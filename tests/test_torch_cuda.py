@@ -3,7 +3,9 @@ versions (same inputs, same card), plus the wrappers' operand checks.
 
 Each kernel serves one policy (P = 1) and a population's P members in one
 launch; both are checked, and so are the member launches' bit-identity
-with the solo launch and across repeated launches.
+with the solo launch and across repeated launches.  The env-only rollout,
+the gradient kernel's bf16 variant and the precision probe are checked the
+same way.
 
 Tests marked `cuda` skip without a CUDA device; a skip is unverified, not a
 pass.  On a machine with a card, run them with
@@ -20,7 +22,8 @@ import torch
 from acas2d_tpu_torch.config import DEFAULT_PARAMS
 from acas2d_tpu_torch.envs import vector
 from acas2d_tpu_torch.models.actor_critic import ActorCritic, flatten
-from acas2d_tpu_torch.ops import policy_rollout, ppo_grads
+from acas2d_tpu_torch.ops import (env_rollout, policy_rollout, ppo_grads,
+                                  precision_probe)
 from acas2d_tpu_torch.ops import step_math as sm
 
 ROLLOUT_RTOL, ROLLOUT_ATOL = 1e-4, 1e-3
@@ -173,6 +176,79 @@ def test_member_grads_p1_equals_the_solo_launch(cuda):
     assert torch.equal(g, gm[0])
     for k, v in aux.items():
         assert torch.equal(v, auxm[k][0]), k
+
+
+def _env_state(B, dev, seed=5):
+    """Fresh spawns with part-way step counters, so that timeouts respawn
+    inside a short launch."""
+    gen = torch.Generator().manual_seed(seed)
+    es, _ = vector.reset_batch(B, DEFAULT_PARAMS, gen, torch.float32, "cpu")
+    st = env_rollout.flat_state(es)
+    st["steps"] = torch.randint(1, DEFAULT_PARAMS.max_steps + 1, (B,),
+                                generator=gen, dtype=torch.int32)
+    return {k: v.to(dev) for k, v in st.items()}
+
+
+def assert_env_rollout_close(got, want, T):
+    """The kernel's outputs against the plain version's by the rule of
+    `env_rollout.agreement`, which chip_smoke.py applies too."""
+    _, _, failed = env_rollout.agreement(got, want, T)
+    assert not failed, failed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(2048, 64), (3072, 5)])
+@pytest.mark.parametrize("mode", [dict(), dict(with_obs=True),
+                                  dict(zero_actions=True, with_obs=True)],
+                         ids=["random", "random_obs", "zero_obs"])
+def test_env_rollout_kernel_matches_plain(cuda, B, T, mode):
+    st = _env_state(B, cuda)
+    n0 = env_rollout.fused_rollout.launches
+    got = env_rollout.fused_rollout(st, 11, T, DEFAULT_PARAMS, **mode)
+    want = env_rollout.fused_rollout({k: v.cpu() for k, v in st.items()},
+                                     11, T, DEFAULT_PARAMS, **mode)
+    torch.cuda.synchronize()
+    assert env_rollout.fused_rollout.launches == n0 + 1
+    assert_env_rollout_close({**got[0], **got[1]}, {**want[0], **want[1]}, T)
+    assert int(want[1]["episodes"].sum()) > 0
+    again = env_rollout.fused_rollout(st, 11, T, DEFAULT_PARAMS, **mode)
+    for k, v in {**got[0], **got[1]}.items():       # deterministic
+        assert torch.equal(v, {**again[0], **again[1]}[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,n", [(1, 65536), (1, 1000), (4, 8192)])
+def test_bf16_grads_kernel_matches_plain(cuda, P, n):
+    args = _grad_args(n, cuda, P=P)
+    g, s = ppo_grads._grads_cuda(*args, bf16=True)
+    w, ws = ppo_grads._grads_plain_members(*args, bf16=True)
+    g32, s32 = ppo_grads._grads_cuda(*args)
+    torch.cuda.synchronize()
+    for m in range(P):
+        assert ((g[m] - w[m]).abs().max() / w[m].abs().max()) < GRAD_REL_TOL
+        dev = (g[m] - g32[m]).abs().max() / g32[m].abs().max()
+        assert 0 < dev <= 3e-2
+    assert torch.allclose(s, ws, rtol=GRAD_REL_TOL, atol=1e-3)
+    g2, s2 = ppo_grads._grads_cuda(*args, bf16=True)
+    assert torch.equal(g, g2) and torch.equal(s, s2)
+
+
+@pytest.mark.cuda
+def test_precision_probe_kernel(cuda):
+    a, b = precision_probe.probe_inputs(cuda)
+    n0 = precision_probe.precision_probe.launches
+    o_def, o_bf, o_hi = precision_probe.precision_probe(a, b)
+    torch.cuda.synchronize()
+    assert precision_probe.precision_probe.launches == n0 + 1
+    assert bool((o_def == 1.0 + 2.0 ** -12).all()) and bool((o_bf == 1.0).all())
+    assert torch.equal(o_def, o_hi)
+    assert precision_probe.quantizes_operands(cuda) is False
+    gen = torch.Generator().manual_seed(0)
+    x, y = (torch.randn(128, 128, generator=gen) for _ in range(2))
+    got = precision_probe.precision_probe(x.to(cuda), y.to(cuda))
+    want = precision_probe.precision_probe(x, y)
+    for g, w in zip(got, want):
+        assert torch.allclose(g.cpu(), w, rtol=0, atol=1e-4)
 
 
 def test_kernel_wrappers_check_operands():

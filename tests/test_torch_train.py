@@ -4,6 +4,7 @@ epochs, 2 iterations, through the plain versions of both kernels.
 
 It prints one JSON line of metrics per iteration, every metric is finite,
 the first iteration is evaluated (sampled spawns or the Mersenne stream),
+`--fused-update-bf16` reaches the gradient kernel (solo and population),
 options the port does not implement yet are refused (by solo and
 population runs), and the default device is CUDA.  Population runs are
 tested in test_torch_population.py."""
@@ -11,10 +12,12 @@ tested in test_torch_population.py."""
 import json
 import math
 
+import numpy as np
 import pytest
 import torch
 
 from acas2d_tpu_torch import train
+from acas2d_tpu_torch.ppo import learner
 
 ITERS = 2
 TINY = ["--preset", "tpu", "--device", "cpu", "--n-envs", "64",
@@ -38,13 +41,36 @@ def test_driver_prints_one_finite_row_per_iteration(exact_eval, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--population", "2",
-                                   "--fused-update-bf16"],
-                                  ["--fused-update-bf16"],
+                                   "--no-fused-rollout"],
+                                  ["--population", "2", "--no-fused-update"],
                                   ["--no-fused-rollout"],
                                   ["--no-fused-update"]])
 def test_driver_refuses_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         train.run(train.parse_args(TINY + flag))
+
+
+@pytest.mark.parametrize("population", [0, 2])
+def test_driver_trains_with_bf16_update(population, tmp_path, monkeypatch):
+    """--fused-update-bf16, solo and population: every gradient call gets
+    bf16=True, and the rows are finite."""
+    calls = []
+    real = learner.ppo_minibatch_grads_members
+
+    def spy(*args, **kw):
+        calls.append(kw["bf16"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(learner, "ppo_minibatch_grads_members", spy)
+    extra = (["--population", str(population), "--reval-episodes", "0",
+              "--out-dir", str(tmp_path)] if population else [])
+    rows = train.run(train.parse_args(TINY + ["--fused-update-bf16"] + extra))
+    assert len(rows) == ITERS
+    assert calls and all(calls) and len(calls) == ITERS * 2 * 2
+    for row in rows:
+        bad = [k for k, v in row.items()
+               if not all(math.isfinite(x) for x in np.ravel(v))]
+        assert not bad, bad
 
 
 @pytest.mark.parametrize("flag", [["--checkpoint-every", "32768"],
