@@ -23,23 +23,45 @@
 // enter only products, so they are rounded once as a tile is loaded; the
 // activations and errors, which the biases and derivatives also read, are
 // rounded where a product reads them.  Without BF16 the rounding is the
-// identity and the code is the f32 kernel's.
+// identity; the f32 path is the tensor-core kernel below, so the template
+// is launched with BF16 only.  It runs on the CUDA cores: ~54,000 flop per
+// row in float32 sums, with per-thread register accumulators over 64-row
+// feature-major tiles (each thread owns a 4x4 block of dW2, two dW1
+// entries and one bias / head entry).
 //
-// What bounds it on an H100: ~54,000 flop per row (forward 2 x 9,344,
-// backward about twice that) against 52 bytes read per row, so operations:
-// float32 on the CUDA cores here (no tensor cores, with or without BF16).
-// Design: blocks run in no order, so the TPU kernel's sequential
+// F32 (grad_partials_tf32x3): what bounds it on an H100.  ~54,000 flop per
+// row (forward 2 x 9,344, backward about twice that) against 52 bytes read
+// per row, so operations.  Two routes bound the same work: float32 on the
+// CUDA cores (67 TFLOP/s), or the products on the TF32 tensor cores at
+// three products each (495 TFLOP/s dense), the least of the two.  Design:
+// every product runs on the tensor cores (mma.sync m16n8k8, TF32) as
+// 3xTF32: each operand x is split into hi = tf32(x) and lo = tf32(x - hi)
+// (cvt.rna), and hi*lo + lo*hi + hi*hi is summed in float32, which carries
+// ~22 bits of each operand, close to float32 (1xTF32 would keep 11).  The
+// weights are split once per block into {hi, lo} pairs in shared memory;
+// activations and errors are split as a fragment is loaded.  The fragment
+// layouts are PTX's, so the bias and tanh of a layer are applied to the
+// accumulators in registers.  A block has 8 warps and walks its rows in
+// tiles of 64; the tile's activations live in shared memory row-major
+// (h1, h2 -> e2, e1; row stride 68 floats).  Warps 2r and 2r+1 own rows
+// 16r..16r+15 of the forward, the head and loss (four lanes a row, reduced
+// by shuffles) and e1, each warp 32 of the 64 features, and meet at
+// 64-thread named barriers; only the cross-row products dW2 = e2^T h1 (a
+// 16 x 32 tile a warp) and dW1 = e1^T x (16 x 8 over half the rows a
+// warp) and the end of a tile wait for the whole block: 3 block barriers a
+// tile.  The dW2 and dW1 accumulators stay in registers across the tile
+// loop; the bias and head-weight sums are per-lane registers over the
+// warp's rows.  96 KB of shared memory a block, 2 blocks an SM.
+//
+// Both kernels: blocks run in no order, so the TPU kernel's sequential
 // accumulation becomes two passes.  Pass 1: block (b, member * 2 + tower)
 // takes a contiguous range of one member's rows for one tower (the
 // members are independent, and so are the towers: the
-// policy tower needs only the mean, the value tower only the value) and
-// walks it in tiles of 64 rows.  Per tile the activations live in shared
-// memory, feature-major (h1, h2 -> e2, e1); the weight gradients are small
-// GEMMs over the tile's rows into per-thread register accumulators (each
-// thread owns a 4x4 block of dW2, two dW1 entries and one bias / head
-// entry).  Each block writes its partial sums of the 4,801 tower gradients
-// and the loss sums.  Pass 2 sums the partials of every entry in block
-// order: the result is deterministic, with no float atomics.  Only the real
+// policy tower needs only the mean, the value tower only the value).
+// Each block writes its partial sums of the 4,801 tower gradients
+// and the loss sums, each in a fixed order.  Pass 2 sums the partials of
+// every entry in block order: the result is deterministic, with no float
+// atomics.  Only the real
 // 64x64 blocks are computed; the TPU kernel's off-diagonal packing is not,
 // so the packed path's masked gradients are exactly the flat vector.  The
 // wrapper bounds the blocks of a launch (about 256 over all members), so
@@ -288,6 +310,384 @@ __global__ void __launch_bounds__(THREADS) grad_partials_kernel(
   }
 }
 
+constexpr int LDT = 68;  // row stride of the (T, 64) tiles: rows 4 banks
+                         // apart, so a row-major fragment load (8 rows x 4
+                         // columns a step) hits 32 distinct banks
+constexpr int XLD = 12;  // row stride of x, likewise
+constexpr int VEC = 200; // b1, b2, w_head, b_head (padded to 8 floats)
+// shared floats: W2 as {hi, lo} pairs (64 x LDT), W1 as pairs, VEC, x,
+// h1, h2/e2, e1, row fields, dout
+constexpr int TC_SMEM_FLOATS = 2 * H * LDT + 2 * H * OBS + VEC + T * XLD
+                             + 3 * T * LDT + 4 * T + T;
+
+// Fragments of mma.sync.m16n8k8 (TF32 operands, float32 accumulators), as
+// two TF32 parts each: lane = 4 g + t holds A (16 x 8) elements (g, t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4); B (8 x 8) elements (t, g),
+// (t + 4, g); C (16 x 8) elements (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1).
+struct FragA { uint32_t h[4], l[4]; };
+struct FragB { uint32_t h[2], l[2]; };
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as hi = tf32(x) and lo = tf32(x - hi).
+__device__ __forceinline__ void split(float x, uint32_t& h, uint32_t& l) {
+  h = tf32_rna(x);
+  l = tf32_rna(x - __uint_as_float(h));
+}
+
+__device__ __forceinline__ float2 split_pair(float x) {
+  uint32_t h, l;
+  split(x, h, l);
+  return make_float2(__uint_as_float(h), __uint_as_float(l));
+}
+
+// A operand, element (m, k) at p[m * sm + k * sk], split as it loads.
+__device__ __forceinline__ FragA load_a(const float* p, int sm, int sk) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  FragA a;
+  split(p[g * sm + t * sk], a.h[0], a.l[0]);
+  split(p[(g + 8) * sm + t * sk], a.h[1], a.l[1]);
+  split(p[g * sm + (t + 4) * sk], a.h[2], a.l[2]);
+  split(p[(g + 8) * sm + (t + 4) * sk], a.h[3], a.l[3]);
+  return a;
+}
+
+// B operand, element (k, n) at p[k * sk + n * sn], split as it loads.
+__device__ __forceinline__ FragB load_b(const float* p, int sk, int sn) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  FragB b;
+  split(p[t * sk + g * sn], b.h[0], b.l[0]);
+  split(p[(t + 4) * sk + g * sn], b.h[1], b.l[1]);
+  return b;
+}
+
+// B operand from a weight split once per block into {hi, lo} pairs.
+__device__ __forceinline__ FragB load_w(const float2* p, int sk, int sn) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float2 u = p[t * sk + g * sn], v = p[(t + 4) * sk + g * sn];
+  FragB b;
+  b.h[0] = __float_as_uint(u.x);
+  b.l[0] = __float_as_uint(u.y);
+  b.h[1] = __float_as_uint(v.x);
+  b.l[1] = __float_as_uint(v.y);
+  return b;
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b as 3xTF32: the two small cross terms first, then hi * hi.
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  mma(c, a.h, b.l);
+  mma(c, a.l, b.h);
+  mma(c, a.h, b.h);
+}
+
+// acc += tile in float32 adds (round to nearest).  The tensor cores'
+// float32 accumulation does not round to nearest and drifts with the
+// length of the chain: dW2 carried through them over a block's 8,192 rows
+// erred 1.8e-4 of its scale, so each tile's dW2 and dW1 start from zero
+// and are added here.
+__device__ __forceinline__ void add_tile(float (&acc)[4],
+                                         const float (&tile)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += tile[i];
+}
+
+// c += a b as one 3xTF32 step that starts from zero, added to c in a
+// float32 add.  Layer 2's forward takes it: there the drift of its 64-long
+// chains moves every row's value the same way, which the value head's
+// bias gradient (one cancelling sum over all rows) shows (7.7e-5 of it
+// through the tensor cores alone, 3.7e-5 so, at 32,768 rows).
+__device__ __forceinline__ void mma3_rn(float (&c)[4], const FragA& a,
+                                        const FragB& b) {
+  float z[4] = {};
+  mma3(z, a, b);
+  add_tile(c, z);
+}
+
+// C tile (16 x 8) to p[m * ld + n], each element through f(value, n).
+template <class F>
+__device__ __forceinline__ void store_c(float* p, int ld, const float (&c)[4],
+                                        F f) {
+  const int g = (threadIdx.x & 31) >> 2, t2 = 2 * (threadIdx.x & 3);
+  *reinterpret_cast<float2*>(p + g * ld + t2) =
+      make_float2(f(c[0], t2), f(c[1], t2 + 1));
+  *reinterpret_cast<float2*>(p + (g + 8) * ld + t2) =
+      make_float2(f(c[2], t2), f(c[3], t2 + 1));
+}
+
+// Barrier of the two warps that own row tile rt (ids 1-4; 0 is the
+// block's).
+__device__ __forceinline__ void pair_sync(int rt) {
+  asm volatile("bar.sync %0, 64;" ::"r"(rt + 1) : "memory");
+}
+
+__global__ void __launch_bounds__(THREADS, 2) grad_partials_tf32x3(
+    const GradConsts c, const float* __restrict__ data, int n,
+    int rows_per_block, const float* __restrict__ params,
+    float* __restrict__ partial) {
+  extern __shared__ __align__(16) float tc[];
+  const int member = blockIdx.y >> 1;
+  const int tower = blockIdx.y & 1;
+  params += (size_t)member * N_PARAMS;
+  data += (size_t)member * n * NCOL;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rt = warp >> 1, ch = warp & 1;  // row tile, feature half
+  const int t0 = 16 * rt;                   // first row of the row tile
+  const int c0 = 32 * ch;                   // first feature of the half
+  const int col = c0 + lane;                // this lane's feature
+  const int hr = t0 + 8 * ch + (lane >> 2), hq = lane & 3;  // head row, phase
+  float2* w2 = reinterpret_cast<float2*>(tc);   // (64, LDT), [out][in]
+  float2* w1 = w2 + H * LDT;                    // (64, 8)
+  float* b1 = reinterpret_cast<float*>(w1 + H * OBS);
+  float* b2 = b1 + H;
+  float* wh = b2 + H;
+  float* bh = wh + H;
+  float* xs = b1 + VEC;              // [t][XLD]
+  float* h1 = xs + T * XLD;          // [t][LDT]
+  float* h2 = h1 + T * LDT;          // [t][LDT]; overwritten by e2
+  float* e1 = h2 + T * LDT;          // [t][LDT]
+  float* rowv = e1 + T * LDT;        // act, old_logp, adv, ret: [4][T]
+  float* dout = rowv + 4 * T;        // [T]
+
+  const float* tp = params + tower * TOWER;
+  for (int i = tid; i < H * H; i += THREADS)
+    w2[(i >> 6) * LDT + (i & 63)] = split_pair(tp[O_W2 + i]);
+  for (int i = tid; i < H * OBS; i += THREADS) w1[i] = split_pair(tp[i]);
+  if (tid < H) {
+    b1[tid] = tp[O_B1 + tid];
+    b2[tid] = tp[O_B2 + tid];
+    wh[tid] = tp[O_WH + tid];
+  } else if (tid == H) {
+    bh[0] = tp[O_BH];
+  }
+  const float cls = fminf(fmaxf(params[2 * TOWER], -4.0f), 2.0f);
+  const float var = expf(2.0f * cls);
+
+  float dw2[4][4] = {};  // dW2 rows 16 rt.., columns c0 + 8 q..
+  float dw1[4] = {};     // dW1 rows 16 (warp & 3).., all 8 columns
+  float g_wh = 0.0f, g_b2 = 0.0f, g_b1 = 0.0f;  // feature col, rows of rt
+  float s_pl = 0.0f, s_vl = 0.0f, s_kl = 0.0f, s_cf = 0.0f, s_dls = 0.0f;
+  float s_bh = 0.0f;                            // row hr (hq == 0 lanes)
+
+  const int r_begin = blockIdx.x * rows_per_block;
+  const int r_end = min(n, r_begin + rows_per_block);
+  __syncthreads();
+  for (int r0 = r_begin; r0 < r_end; r0 += T) {
+    const int nt = min(T, r_end - r0);
+    // the row tile's 16 contiguous rows of 13 floats, by its two warps
+    for (int i = 32 * ch + lane; i < 16 * NCOL; i += 64) {
+      const int tl = i / NCOL, cl = i - tl * NCOL, t = t0 + tl;
+      const float v = t < nt ? data[(size_t)(r0 + t0) * NCOL + i] : 0.0f;
+      if (cl < OBS) xs[t * XLD + cl] = v;
+      else if (cl == 8) rowv[t] = v;
+      else if (cl == 9) rowv[T + t] = v;
+      else if (cl == 11) rowv[2 * T + t] = v;
+      else if (cl == 12) rowv[3 * T + t] = v;
+    }
+    pair_sync(rt);
+    // layer 1: h1 = tanh(x W1^T + b1), K = 8
+    {
+      const FragA a = load_a(xs + t0 * XLD, XLD, 1);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int n0 = c0 + 8 * q;
+        float z[4] = {};
+        mma3(z, a, load_w(w1 + n0 * OBS, 1, OBS));
+        store_c(h1 + t0 * LDT + n0, LDT, z,
+                [&](float v, int j) { return tanhf(v + b1[n0 + j]); });
+      }
+    }
+    pair_sync(rt);
+    // layer 2: h2 = tanh(h1 W2^T + b2)
+    {
+      float z[4][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < H / 8; ++ks) {
+        const FragA a = load_a(h1 + t0 * LDT + 8 * ks, LDT, 1);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          mma3_rn(z[q], a, load_w(w2 + (c0 + 8 * q) * LDT + 8 * ks, 1, LDT));
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int n0 = c0 + 8 * q;
+        store_c(h2 + t0 * LDT + n0, LDT, z[q],
+                [&](float v, int j) { return tanhf(v + b2[n0 + j]); });
+      }
+    }
+    pair_sync(rt);
+    // head and the loss: four lanes a row, features hq + 4 i
+    {
+      const int t = hr;
+      float o = 0.0f;
+#pragma unroll
+      for (int i = 0; i < H / 4; ++i)
+        o += wh[hq + 4 * i] * h2[t * LDT + hq + 4 * i];
+      o += __shfl_xor_sync(0xffffffffu, o, 1);
+      o += __shfl_xor_sync(0xffffffffu, o, 2);
+      if (hq == 0) {
+        o += bh[0];
+        float d = 0.0f;
+        if (t < nt) {
+          if (tower == 0) {
+            const float act = rowv[t], old_logp = rowv[T + t];
+            const float adv = rowv[2 * T + t];
+            const float diff = act - o;
+            const float logp = -0.5f * (diff * diff / var + 2.0f * cls
+                                        + c.log_2pi);
+            const float delta = logp - old_logp;
+            const bool delta_in = fabsf(delta) < 20.0f;
+            const float dc = fminf(fmaxf(delta, -20.0f), 20.0f);
+            const float ratio = expf(dc);
+            const bool in_band = (ratio > c.lo) && (ratio < c.hi);
+            const float unclipped = adv * ratio;
+            const float clipped = adv * fminf(fmaxf(ratio, c.lo), c.hi);
+            s_pl += -fminf(unclipped, clipped);
+            s_kl += (ratio - 1.0f) - dc;
+            s_cf += fabsf(ratio - 1.0f) > c.eps ? 1.0f : 0.0f;
+            // min() picks the unclipped branch inside the band, and outside
+            // it where clipping would have helped the objective
+            const bool sel = in_band || (adv > 0.0f && ratio < c.lo)
+                          || (adv < 0.0f && ratio > c.hi);
+            const float dlogp = (-(adv * ratio) * c.inv_n)
+                              * ((sel && delta_in) ? 1.0f : 0.0f);
+            d = dlogp * (diff / var);
+            // straight-through log_std: d logp / d log_std = diff^2/var - 1
+            s_dls += dlogp * (diff * diff / var - 1.0f);
+          } else {
+            const float verr = o - rowv[3 * T + t];
+            s_vl += verr * verr;
+            d = c.dvalue_scale * verr;
+          }
+        }
+        dout[t] = d;
+        s_bh += d;
+      }
+    }
+    pair_sync(rt);
+    // e2 = (w_head * dout) * (1 - h2^2) in place; w_head and b2 sums
+    {
+      const float w = wh[col];
+      float sw = 0.0f, sb = 0.0f;
+#pragma unroll 4
+      for (int r = 0; r < 16; ++r) {
+        const float d = dout[t0 + r];
+        float* p = h2 + (t0 + r) * LDT + col;
+        const float hv = *p;
+        sw += d * hv;
+        const float e = (w * d) * (1.0f - hv * hv);
+        *p = e;
+        sb += e;
+      }
+      g_wh += sw;
+      g_b2 += sb;
+    }
+    __syncthreads();
+    // e1 = (e2 W2) * (1 - h1^2) on the row tile; dW2 += e2^T h1 on rows
+    // 16 rt.. and columns c0.. over all rows
+    {
+      float z[4][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < H / 8; ++ks) {
+        const FragA a = load_a(h2 + t0 * LDT + 8 * ks, LDT, 1);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          mma3(z[q], a, load_w(w2 + 8 * ks * LDT + c0 + 8 * q, LDT, 1));
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int n0 = c0 + 8 * q;
+        store_c(e1 + t0 * LDT + n0, LDT, z[q], [](float v, int) { return v; });
+      }
+    }
+    {
+      float z[4][4] = {};
+#pragma unroll 2
+      for (int ks = 0; ks < T / 8; ++ks) {
+        const FragA a = load_a(h2 + 8 * ks * LDT + t0, 1, LDT);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          mma3(z[q], a, load_b(h1 + 8 * ks * LDT + c0 + 8 * q, LDT, 1));
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) add_tile(dw2[q], z[q]);
+    }
+    __syncwarp();
+    {
+      float sb = 0.0f;
+#pragma unroll 4
+      for (int r = 0; r < 16; ++r) {
+        const float hv = h1[(t0 + r) * LDT + col];
+        float* p = e1 + (t0 + r) * LDT + col;
+        const float e = *p * (1.0f - hv * hv);
+        *p = e;
+        sb += e;
+      }
+      g_b1 += sb;
+    }
+    __syncthreads();
+    // dW1 += e1^T x: rows 16 (warp & 3).. over half (warp >> 2) of the rows
+    {
+      const int k0 = 16 * (warp & 3), tr = (warp >> 2) * (T / 2);
+      float z[4] = {};
+#pragma unroll
+      for (int ks = 0; ks < T / 16; ++ks)
+        mma3(z, load_a(e1 + (tr + 8 * ks) * LDT + k0, 1, LDT),
+             load_b(xs + (tr + 8 * ks) * XLD, XLD, 1));
+      add_tile(dw1, z);
+    }
+    __syncthreads();
+  }
+
+  // dW2 and dW1 tiles, the per-lane sums and the loss sums go through
+  // shared memory, then out in coalesced stores; every sum in fixed order
+  float* rec = partial + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * REC;
+  const auto id = [](float v, int) { return v; };
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    store_c(h1 + t0 * LDT + c0 + 8 * q, LDT, dw2[q], id);
+  store_c(e1 + (warp >> 2) * H * OBS + 16 * (warp & 3) * OBS, OBS, dw1, id);
+  float* lanes = h2;               // [b1, b2, w_head][rt][feature]
+  float* stat = h2 + 3 * 4 * H;    // [NSTAT + 1][row owner]
+  lanes[rt * H + col] = g_b1;
+  lanes[4 * H + rt * H + col] = g_b2;
+  lanes[8 * H + rt * H + col] = g_wh;
+  if (hq == 0) {
+    const float s[NSTAT + 1] = {s_pl, s_vl, s_kl, s_cf, s_dls, s_bh};
+#pragma unroll
+    for (int q = 0; q <= NSTAT; ++q) stat[q * T + hr] = s[q];
+  }
+  __syncthreads();
+  for (int i = tid; i < H * H; i += THREADS)
+    rec[O_W2 + i] = h1[(i >> 6) * LDT + (i & 63)];
+  for (int i = tid; i < H * OBS; i += THREADS)
+    rec[i] = e1[i] + e1[H * OBS + i];
+  if (tid < 3 * H) {
+    const int q = tid >> 6, j = tid & 63;
+    const float* p = lanes + q * 4 * H + j;
+    const float s = ((p[0] + p[H]) + p[2 * H]) + p[3 * H];
+    rec[(q == 0 ? O_B1 : q == 1 ? O_B2 : O_WH) + j] = s;
+  } else if (tid <= 3 * H + NSTAT) {
+    const int q = tid - 3 * H;
+    float s = 0.0f;
+    for (int t = 0; t < T; ++t) s += stat[q * T + t];
+    rec[q < NSTAT ? TOWER + q : O_BH] = s;
+  }
+}
+
 // Per member: grads (2 * TOWER + 1), both towers' gradients in
 // partial-record order, then d log_std - ent_coef; sums (4): policy loss,
 // value loss, kl, clips.  One thread per output entry of all P members.
@@ -332,12 +732,51 @@ cudaError_t launch_partials(const GradConsts& c, const float* data, int P,
   return cudaGetLastError();
 }
 
+cudaError_t set_tf32x3_smem() {
+  return cudaFuncSetAttribute(grad_partials_tf32x3,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(TC_SMEM_FLOATS * sizeof(float)));
+}
+
+cudaError_t launch_tf32x3(const GradConsts& c, const float* data, int P,
+                          int n, int rows_per_block, int nblocks,
+                          const float* params, float* partial,
+                          cudaStream_t stream) {
+  cudaError_t err = set_tf32x3_smem();
+  if (err != cudaSuccess) return err;
+  grad_partials_tf32x3<<<dim3(nblocks, 2 * P), THREADS,
+                         TC_SMEM_FLOATS * sizeof(float), stream>>>(
+      c, data, n, rows_per_block, params, partial);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* acas_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// The f32 first pass as built: out[0] registers a thread, [1] local
+// (spilled) bytes a thread, [2] static and [3] dynamic shared bytes a
+// block, [4] resident blocks an SM.  Returns the calls' CUDA error.
+int acas_ppo_grads_f32_attrs(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = set_tf32x3_smem();
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, grad_partials_tf32x3);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, grad_partials_tf32x3, THREADS,
+        TC_SMEM_FLOATS * sizeof(float));
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = (int)(TC_SMEM_FLOATS * sizeof(float));
+  out[4] = blocks;
+  return 0;
 }
 
 // Scratch floats the wrapper allocates for `partial`.
@@ -360,8 +799,8 @@ int acas_ppo_grads(float inv_n, float eps, float lo, float hi,
   cudaError_t err =
       bf16 ? launch_partials<true>(c, data, P, n, rows_per_block, nblocks,
                                    params, partial, st)
-           : launch_partials<false>(c, data, P, n, rows_per_block, nblocks,
-                                    params, partial, st);
+           : launch_tf32x3(c, data, P, n, rows_per_block, nblocks, params,
+                           partial, st);
   if (err != cudaSuccess) return (int)err;
   const int total = P * (2 * TOWER + NSTAT);
   grad_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(

@@ -34,7 +34,10 @@ The wrapper launches the CUDA kernel (`csrc/ppo_grads.cu`) for CUDA tensors
 and runs the plain version (`_grads_plain`, the same forward and backward
 in torch, member by member) for CPU tensors.  There is no fallback between
 the two.  `ppo_minibatch_grads_members.launches` counts the kernel's
-launches, solo or member.
+launches, solo or member.  Without `bf16` the kernel runs its products on
+the tensor cores as 3xTF32 (each float32 operand split into two TF32
+parts), which keeps them close to float32: on the card every gradient block
+agrees with the plain version within 4e-5 of its largest entry.
 """
 
 from __future__ import annotations
@@ -204,6 +207,18 @@ def _grads_cuda(params: torch.Tensor, data: torch.Tensor, c: Dict,
     _cuda.check(rc, lib, "ppo_grads launch")
     ppo_minibatch_grads_members.launches += 1
     return grads, sums
+
+
+def f32_kernel_attrs() -> Tuple[int, int, int, int, int]:
+    """The f32 first pass as built on this card: (registers a thread,
+    spilled bytes a thread, static shared bytes, dynamic shared bytes,
+    resident blocks an SM)."""
+    lib = _cuda.load("ppo_grads")
+    out = (ctypes.c_int * 5)()
+    lib.acas_ppo_grads_f32_attrs.restype = ctypes.c_int
+    lib.acas_ppo_grads_f32_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    _cuda.check(lib.acas_ppo_grads_f32_attrs(out), lib, "ppo_grads attrs")
+    return tuple(out)
 
 
 def _loss_aux(sums: torch.Tensor, n: int, log_std: torch.Tensor,

@@ -4,7 +4,9 @@
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. build the CUDA kernels from acas2d_tpu_torch/csrc with nvcc (sm_90a),
-     one nvcc per source, all at once;
+     one nvcc per source, all at once; the f32 gradient kernel's registers,
+     spills, shared memory and blocks an SM, and its instructions from
+     `cuobjdump -sass`, which must include TF32 tensor-core HMMAs;
   2. the rollout kernel against its plain PyTorch version, same seed,
      weights and state: the public wrapper on tensors on the card against
      the same call on copies on the CPU.  Solo (B = 2048 envs, K = 16) and
@@ -12,7 +14,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      pipeline's launch);
   3. the PPO-gradient kernel against its plain version the same way, solo
      (N = 65,536 rows) and member-batched (P = 32 x N = 32,768), with the
-     `tpu` preset's loss settings and again with ent_coef 0.01;
+     `tpu` preset's loss settings and again with ent_coef 0.01; then two
+     launches on the same operands, which must agree bit for bit;
   4. the solo main path: `acas2d_tpu_torch.train` at the full `tpu` preset
      shape (2048 x 128, minibatch 65,536, 10 epochs) for 3 iterations, with
      the launch counters read around it (8 rollout and 40 gradient launches
@@ -61,6 +64,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -80,8 +84,8 @@ from acas2d_tpu_torch.ops import step_math as sm
 from acas2d_tpu_torch.ppo.config import tpu_default
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit):
-# memory, float32 on the CUDA cores (an FMA counted as 2), bf16 and float64
-# on the tensor cores.  The special-function units (IEEE sine, cosine,
+# memory, float32 on the CUDA cores (an FMA counted as 2), bf16, TF32 and
+# float64 on the tensor cores.  The special-function units (IEEE sine, cosine,
 # square root and division counted as one op each) and the 32-bit integer
 # units give 16 and 64 results per clock per SM against the float32
 # units' 128 (CUDA C++ Programming Guide, arithmetic instruction
@@ -89,7 +93,8 @@ from acas2d_tpu_torch.ppo.config import tpu_default
 # of the float32 flop rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
-PEAK_OPS_PER_S = {"f32": PEAK_F32_FLOP_PER_S, "bf16": 989e12, "f64": 67e12,
+PEAK_OPS_PER_S = {"f32": PEAK_F32_FLOP_PER_S, "bf16": 989e12, "tf32": 495e12,
+                  "f64": 67e12,
                   "sfu": PEAK_F32_FLOP_PER_S * 16 / 256,
                   "int": PEAK_F32_FLOP_PER_S * 64 / 256}
 K = 16                           # rollout steps per launch (fused_chunk)
@@ -115,6 +120,9 @@ ROLLOUT_RTOL, ROLLOUT_ATOL = 1e-4, 1e-3
 #  gradients: 32,768- or 65,536-row float32 sums in another order; error
 #  relative to each parameter block's largest gradient.
 GRAD_REL_TOL = 1e-4
+#  the earlier f32 kernel, on the CUDA cores, held every block within this
+#  of its plain version (PERF.md); printed beside the 3xTF32 kernel's errors
+CUDA_CORE_GRAD_REL_ERR = 2.0e-5
 #  flagship eval: the float32 policy's matmuls sum in another order on the
 #  card than on the CPU where the record was made; the record has 2 decimals.
 EVAL_TOL = 0.05
@@ -195,6 +203,39 @@ def phase_build():
         for line in str(info["log"]).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {name}: {line.strip()}")
+    regs, local, static, dynamic, per_sm = ppo_grads.f32_kernel_attrs()
+    print(f"[build] ppo_grads f32 first pass (grad_partials_tf32x3): {regs} "
+          f"registers, {local} bytes spilled a thread, {static + dynamic} "
+          f"bytes of shared memory a block, {per_sm} blocks "
+          f"({per_sm * 8} warps) an SM")
+    sass_census()
+
+
+def sass_census():
+    """`cuobjdump -sass` of the gradient library: the f32 first pass's
+    instructions by kind.  Its products must be TF32 tensor-core HMMAs."""
+    tool = os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_cuda.lib_path("ppo_grads"))],
+                          capture_output=True, text=True, check=True).stdout
+    fn, ops = None, {}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and "grad_partials_tf32x3" in fn and "/*" in line:
+            body = line.split("*/", 1)[-1].strip().split(";")[0].split()
+            if not body:
+                continue
+            op = body[1] if body[0].startswith("@") and len(body) > 1 \
+                else body[0]
+            ops[op] = ops.get(op, 0) + 1
+    hmma = {k: v for k, v in ops.items() if k.startswith("HMMA")}
+    kinds = ("LDS", "STS", "MUFU", "BAR", "FFMA", "FADD", "FMUL", "SHFL")
+    print(f"[build] SASS of grad_partials_tf32x3 ({tool} -sass): "
+          f"{sum(ops.values())} instructions; {hmma}; "
+          + ", ".join(f"{k} {sum(v for o, v in ops.items() if o.startswith(k))}"
+                      for k in kinds))
+    check(hmma and all(".TF32" in k for k in hmma),
+          "the f32 gradient kernel runs no TF32 HMMA")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -340,7 +381,8 @@ def phase_grads(dev, P, n):
                 worst[name] = max(worst.get(name, 0.0), rel)
         for name, rel in worst.items():
             print(f"[{tag}] ent_coef {ent_coef}: {name} rel err {rel:.3e} "
-                  f"(worst of {P} member(s))")
+                  f"(worst of {P} member(s); the CUDA-core kernel: at most "
+                  f"{CUDA_CORE_GRAD_REL_ERR:.1e})")
             check(rel < GRAD_REL_TOL, f"gradient {name} rel err {rel}")
         for key in sorted(waux):
             a, b = aux[key].cpu().double(), waux[key].double()
@@ -352,7 +394,12 @@ def phase_grads(dev, P, n):
     check(0.05 < clip_frac < 0.95, "both clip regimes should be exercised")
     data = ppo_grads.normalize_adv_column(mb).contiguous()
     consts = ppo_grads._constants(n, cfg.clip_range, cfg.vf_coef)
-    return (params, data, consts, cfg.ent_coef), max_err
+    args = (params, data, consts, cfg.ent_coef)
+    (g1, s1), (g2, s2) = (ppo_grads._grads_cuda(*args) for _ in range(2))
+    same = torch.equal(g1, g2) and torch.equal(s1, s2)
+    print(f"[{tag}] two launches on the same operands bit-identical: {same}")
+    check(same, "the gradient kernel does not repeat bit for bit")
+    return args, max_err
 
 
 # ------------------------------------------------------------------ phase 4
@@ -855,10 +902,18 @@ def time_grads(args):
     ms = cuda_time_ms(lambda: ppo_grads._grads_cuda(*args), 20)
     plain_ms = cuda_time_ms(lambda: ppo_grads._grads_plain_members(*args), 5)
     n_bytes = 4 * (P * n * 13 + 2 * P * N_PARAMS + 4 * P)
-    # bf16 operands with float32 sums: what the tensor cores do at 989
-    # TFLOP/s, so that is the least time of the same work
-    unit = "bf16" if len(args) > 4 and args[4] else "f32"
-    return ms, plain_ms, bound_ops(n_bytes, {unit: P * n * GRAD_FLOP})
+    flop = P * n * GRAD_FLOP
+    if len(args) > 4 and args[4]:
+        # bf16 operands with float32 sums: what the tensor cores do at 989
+        # TFLOP/s, so that is the least time of the same work
+        return ms, plain_ms, bound_ops(n_bytes, {"bf16": flop})
+    # float32 products: on the CUDA cores, or as 3xTF32 (three TF32
+    # products each) on the tensor cores; the faster route bounds
+    cores = bound_ops(n_bytes, {"f32": flop})
+    tensor = bound_ops(n_bytes, {"tf32": 3 * flop})
+    print(f"[time] gradient bound at P={P} N={n}: {cores[0]:.4f} ms float32 "
+          f"on the CUDA cores, {tensor[0]:.4f} ms 3xTF32 on the tensor cores")
+    return ms, plain_ms, min(cores, tensor)
 
 
 # Operations of csrc/env_rollout.cu, counted from its source (step_math.cuh

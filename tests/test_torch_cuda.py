@@ -152,7 +152,8 @@ def test_grads_kernel_matches_plain(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,n", [(8, 8192), (3, 1000)])
+@pytest.mark.parametrize("P,n", [(8, 8192), (3, 1000), (32, 32768),
+                                 (32, 1000)])
 def test_member_grads_kernel_matches_plain_and_repeats(cuda, P, n):
     args = _grad_args(n, cuda, P=P)
     g, s = ppo_grads._grads_cuda(*args)
