@@ -91,6 +91,29 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def sass_ops(name: str, functions: Iterable[str]) -> Dict[str, Dict[str, int]]:
+    """`cuobjdump -sass` of the built library of csrc/<name>.cu: for each
+    of `functions` (a substring of a kernel's mangled name), its
+    instructions counted by opcode (predicates dropped, modifiers kept,
+    e.g. `HMMA.16816.F32.BF16`)."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    fn, ops = None, {f: {} for f in functions}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1]
+            fn = next((f for f in ops if f in mangled), None)
+        elif fn and "/*" in line:
+            body = line.split("*/", 1)[-1].strip().split(";")[0].split()
+            if not body:
+                continue
+            op = body[1] if body[0].startswith("@") and len(body) > 1 \
+                else body[0]
+            ops[fn][op] = ops[fn].get(op, 0) + 1
+    return ops
+
+
 def check(rc: int, lib: ctypes.CDLL, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if rc != 0:

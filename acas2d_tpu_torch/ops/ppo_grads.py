@@ -34,10 +34,12 @@ The wrapper launches the CUDA kernel (`csrc/ppo_grads.cu`) for CUDA tensors
 and runs the plain version (`_grads_plain`, the same forward and backward
 in torch, member by member) for CPU tensors.  There is no fallback between
 the two.  `ppo_minibatch_grads_members.launches` counts the kernel's
-launches, solo or member.  Without `bf16` the kernel runs its products on
-the tensor cores as 3xTF32 (each float32 operand split into two TF32
-parts), which keeps them close to float32: on the card every gradient block
-agrees with the plain version within 4e-5 of its largest entry.
+launches, solo or member.  The kernel runs its products on the tensor
+cores: without `bf16` as 3xTF32 (each float32 operand split into two TF32
+parts), which keeps them close to float32 (on the card every gradient block
+agrees with the plain version within 4e-5 of its largest entry); with
+`bf16` as one bf16 product each, on operands rounded once as the plain
+version rounds them.
 """
 
 from __future__ import annotations
@@ -179,14 +181,16 @@ def launch_blocks(P: int, n: int) -> Tuple[int, int]:
 
 
 def _grads_cuda(params: torch.Tensor, data: torch.Tensor, c: Dict,
-                ent_coef: float, bf16: bool = False
+                ent_coef: float, bf16: bool = False,
+                lib: ctypes.CDLL = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch csrc/ppo_grads.cu (both passes); same operands and outputs as
-    _grads_plain_members."""
+    _grads_plain_members.  `lib`: another build of the same C interface
+    (`grads_ab`'s variants), else the package's."""
     P, n = data.shape[:2]
     _cuda.require(data, "minibatch", torch.float32, (P, n, N_COLS))
     _cuda.require(params, "params", torch.float32, (P, N_PARAMS))
-    lib = _cuda.load("ppo_grads")
+    lib = lib or _cuda.load("ppo_grads")
     lib.acas_ppo_grads_partial_floats.restype = ctypes.c_longlong
     lib.acas_ppo_grads_partial_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     fn = lib.acas_ppo_grads
@@ -209,15 +213,17 @@ def _grads_cuda(params: torch.Tensor, data: torch.Tensor, c: Dict,
     return grads, sums
 
 
-def f32_kernel_attrs() -> Tuple[int, int, int, int, int]:
-    """The f32 first pass as built on this card: (registers a thread,
-    spilled bytes a thread, static shared bytes, dynamic shared bytes,
-    resident blocks an SM)."""
+def kernel_attrs(bf16: bool = False) -> Tuple[int, int, int, int, int]:
+    """The first pass of the f32 or the bf16 variant as built on this card:
+    (registers a thread, spilled bytes a thread, static shared bytes,
+    dynamic shared bytes, resident blocks an SM)."""
     lib = _cuda.load("ppo_grads")
     out = (ctypes.c_int * 5)()
-    lib.acas_ppo_grads_f32_attrs.restype = ctypes.c_int
-    lib.acas_ppo_grads_f32_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    _cuda.check(lib.acas_ppo_grads_f32_attrs(out), lib, "ppo_grads attrs")
+    lib.acas_ppo_grads_attrs.restype = ctypes.c_int
+    lib.acas_ppo_grads_attrs.argtypes = [ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_int)]
+    _cuda.check(lib.acas_ppo_grads_attrs(int(bf16), out), lib,
+                "ppo_grads attrs")
     return tuple(out)
 
 

@@ -208,7 +208,9 @@ def run(args) -> List[Dict[str, float]]:
 
     rows = []
     next_eval = 0
-    for it in range(cfg.n_iterations):
+    # until the budget is spent, the last iteration included when the budget
+    # is not a multiple of the batch (JAX train.py:538)
+    while state.iteration * cfg.batch_size < cfg.total_timesteps:
         t0 = time.perf_counter()
         state, metrics = train_step(state)
         keys = list(metrics)
@@ -259,7 +261,7 @@ def run_population(args) -> List[Dict]:
 
     rows: List[Dict] = []
     next_eval = 0
-    for it in range(cfg.n_iterations):
+    while state.iteration * cfg.batch_size < cfg.total_timesteps:
         t0 = time.perf_counter()
         state, metrics = step(state)
         keys = list(metrics)

@@ -4,9 +4,10 @@
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. build the CUDA kernels from acas2d_tpu_torch/csrc with nvcc (sm_90a),
-     one nvcc per source, all at once; the f32 gradient kernel's registers,
-     spills, shared memory and blocks an SM, and its instructions from
-     `cuobjdump -sass`, which must include TF32 tensor-core HMMAs;
+     one nvcc per source, all at once; the registers, spills, shared memory
+     and blocks an SM of the gradient kernel's two variants, and their
+     instructions from `cuobjdump -sass`, which must include tensor-core
+     HMMAs of their type (TF32 for f32, BF16 for bf16);
   2. the rollout kernel against its plain PyTorch version, same seed,
      weights and state: the public wrapper on tensors on the card against
      the same call on copies on the CPU.  Solo (B = 2048 envs, K = 16) and
@@ -49,7 +50,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      from the f32 kernel, and the precision probe, whose answer must agree
      with that deviation; then bf16 training, solo (`train --preset tpu
      --fused-update-bf16`, 3 iterations) and one population iteration, with
-     the launch counters read around each;
+     the launch counters read around each, and one more bf16 population
+     iteration cut into rollout / GAE / update;
  10. kernel and plain-version times from CUDA events, each kernel's bound,
      the card's name and power limit.  The env rollout is first held
      against its plain version at the headline shape, on the state each
@@ -64,7 +66,6 @@ from __future__ import annotations
 
 import json
 import math
-import os
 import subprocess
 import sys
 import tempfile
@@ -192,6 +193,12 @@ def bound_ops(n_bytes: float, ops):
 
 # ------------------------------------------------------------------ phase 1
 
+# the gradient kernel's first passes (function names in the SASS) and
+# whether each is the bf16 variant, whose HMMAs must be BF16 (else TF32)
+GRAD_KERNELS = (("grad_partials_tf32x3", False),
+                ("grad_partials_bf16mma", True))
+
+
 def phase_build():
     t0 = time.perf_counter()
     built = _cuda.build()
@@ -203,39 +210,33 @@ def phase_build():
         for line in str(info["log"]).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {name}: {line.strip()}")
-    regs, local, static, dynamic, per_sm = ppo_grads.f32_kernel_attrs()
-    print(f"[build] ppo_grads f32 first pass (grad_partials_tf32x3): {regs} "
-          f"registers, {local} bytes spilled a thread, {static + dynamic} "
-          f"bytes of shared memory a block, {per_sm} blocks "
-          f"({per_sm * 8} warps) an SM")
+    for kernel, bf16 in GRAD_KERNELS:
+        regs, local, static, dynamic, per_sm = ppo_grads.kernel_attrs(bf16)
+        print(f"[build] ppo_grads {'bf16' if bf16 else 'f32'} first pass "
+              f"({kernel}): {regs} registers, {local} bytes spilled a "
+              f"thread, {static + dynamic} bytes of shared memory a block, "
+              f"{per_sm} blocks ({per_sm * 8} warps) an SM")
     sass_census()
 
 
 def sass_census():
-    """`cuobjdump -sass` of the gradient library: the f32 first pass's
-    instructions by kind.  Its products must be TF32 tensor-core HMMAs."""
-    tool = os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_cuda.lib_path("ppo_grads"))],
-                          capture_output=True, text=True, check=True).stdout
-    fn, ops = None, {}
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-        elif fn and "grad_partials_tf32x3" in fn and "/*" in line:
-            body = line.split("*/", 1)[-1].strip().split(";")[0].split()
-            if not body:
-                continue
-            op = body[1] if body[0].startswith("@") and len(body) > 1 \
-                else body[0]
-            ops[op] = ops.get(op, 0) + 1
-    hmma = {k: v for k, v in ops.items() if k.startswith("HMMA")}
-    kinds = ("LDS", "STS", "MUFU", "BAR", "FFMA", "FADD", "FMUL", "SHFL")
-    print(f"[build] SASS of grad_partials_tf32x3 ({tool} -sass): "
-          f"{sum(ops.values())} instructions; {hmma}; "
-          + ", ".join(f"{k} {sum(v for o, v in ops.items() if o.startswith(k))}"
-                      for k in kinds))
-    check(hmma and all(".TF32" in k for k in hmma),
-          "the f32 gradient kernel runs no TF32 HMMA")
+    """`cuobjdump -sass` of the gradient library: each first pass's
+    instructions by kind.  Its products must be tensor-core HMMAs of its
+    operand type, TF32 (f32) or BF16 (bf16), and of no other."""
+    ops = _cuda.sass_ops("ppo_grads", [name for name, _ in GRAD_KERNELS])
+    kinds = ("LDS", "LDSM", "STS", "MUFU", "BAR", "FFMA", "FADD", "FMUL",
+             "SHFL")
+    for name, bf16 in GRAD_KERNELS:
+        got = ops[name]
+        hmma = {k: v for k, v in got.items() if k.startswith("HMMA")}
+        by_kind = {k: sum(v for o, v in got.items() if o.split(".")[0] == k)
+                   for k in kinds}
+        print(f"[build] SASS of {name} (cuobjdump -sass): "
+              f"{sum(got.values())} instructions; {hmma}; "
+              + ", ".join(f"{k} {v}" for k, v in by_kind.items()))
+        want = ".BF16" if bf16 else ".TF32"
+        check(hmma and all(want in k for k in hmma),
+              f"{name} runs no {want[1:]} HMMA, or another kind")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -851,7 +852,8 @@ def phase_bf16_training():
     """`train --preset tpu --fused-update-bf16` for 3 iterations, then one
     iteration of the population command with --fused-update-bf16 (the
     in-training eval cut to 4 episodes, no re-eval, no polish): the launch
-    counters around each."""
+    counters around each.  Then one more bf16 population iteration cut into
+    its phases.  Returns (solo launches, population launches, phase ms)."""
     from acas2d_tpu_torch import train
     argv = ["--preset", "tpu", "--fused-update-bf16",
             "--total-steps", str(ITERS * SOLO_B * 128)]
@@ -875,7 +877,16 @@ def phase_bf16_training():
           f"{pop}")
     check(pop == expected(policy_rollout=8, ppo_grads=40))
     check_finite(prow)
-    return solo, pop
+    from acas2d_tpu_torch.ppo import population
+    cfg = train.build_config(train.parse_args(POP_ARGV
+                                              + ["--fused-update-bf16"]))
+    ms = breakdown(
+        lambda mark: population.make_population_step(
+            cfg, DEFAULT_PARAMS, "cuda", on_phase=mark),
+        population.init_population(cfg, DEFAULT_PARAMS, POP, "cuda"))
+    print(f"[bf16 train] population iteration phases (ms): {json.dumps(ms)}"
+          f"; iteration {sum(ms.values()):.2f} ms")
+    return solo, pop, ms
 
 
 # ----------------------------------------------------------------- phase 10
@@ -1035,7 +1046,9 @@ def phase_timing(rows_in, runs):
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     for path, roll_name, grad_name in (
             ("solo", "policy_rollout", "ppo_grads"),
-            ("members", "policy_rollout_members", "ppo_grads_members")):
+            ("members", "policy_rollout_members", "ppo_grads_members"),
+            ("bf16 members", "policy_rollout_members",
+             "ppo_grads_bf16_members")):
         it_ms, phases = runs[path]
         print(f"[time] {path} main-path iteration {it_ms:.2f} ms; rollout "
               f"phase {phases['rollout']:.2f} ms holds "
@@ -1104,9 +1117,11 @@ def main() -> int:
          probe_launches, cu + "precision_probe.cu",
          "scripts/pallas_tpu_check.py:244"),
     ]
+    bf16_phases = bf16_launches[2]
     kernels = phase_timing(
         rows, {"solo": (solo_it_s * 1e3, solo_phases),
-               "members": (pop_it_s * 1e3, pop_phases)})
+               "members": (pop_it_s * 1e3, pop_phases),
+               "bf16 members": (sum(bf16_phases.values()), bf16_phases)})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

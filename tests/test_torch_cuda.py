@@ -22,8 +22,8 @@ import torch
 from acas2d_tpu_torch.config import DEFAULT_PARAMS
 from acas2d_tpu_torch.envs import vector
 from acas2d_tpu_torch.models.actor_critic import ActorCritic, flatten
-from acas2d_tpu_torch.ops import (env_rollout, policy_rollout, ppo_grads,
-                                  precision_probe)
+from acas2d_tpu_torch.ops import (_cuda, env_rollout, policy_rollout,
+                                  ppo_grads, precision_probe)
 from acas2d_tpu_torch.ops import step_math as sm
 
 ROLLOUT_RTOL, ROLLOUT_ATOL = 1e-4, 1e-3
@@ -218,7 +218,8 @@ def test_env_rollout_kernel_matches_plain(cuda, B, T, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,n", [(1, 65536), (1, 1000), (4, 8192)])
+@pytest.mark.parametrize("P,n", [(1, 65536), (1, 1000), (4, 8192),
+                                 (32, 32768)])
 def test_bf16_grads_kernel_matches_plain(cuda, P, n):
     args = _grad_args(n, cuda, P=P)
     g, s = ppo_grads._grads_cuda(*args, bf16=True)
@@ -232,6 +233,21 @@ def test_bf16_grads_kernel_matches_plain(cuda, P, n):
     assert torch.allclose(s, ws, rtol=GRAD_REL_TOL, atol=1e-3)
     g2, s2 = ppo_grads._grads_cuda(*args, bf16=True)
     assert torch.equal(g, g2) and torch.equal(s, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16,name,kind", [
+    (False, "grad_partials_tf32x3", ".TF32"),
+    (True, "grad_partials_bf16mma", ".BF16")], ids=["f32", "bf16"])
+def test_grads_kernel_runs_tensor_core_hmmas_at_two_blocks_an_sm(
+        cuda, bf16, name, kind):
+    """Each variant's first pass multiplies on the tensor cores in its own
+    operand type, and two blocks (16 warps) of it fit on an SM."""
+    *_, per_sm = ppo_grads.kernel_attrs(bf16)
+    assert per_sm == 2
+    ops = _cuda.sass_ops("ppo_grads", [name])[name]
+    hmma = [op for op in ops if op.startswith("HMMA")]
+    assert hmma and all(kind in op for op in hmma), ops
 
 
 @pytest.mark.cuda

@@ -73,6 +73,30 @@ def test_driver_trains_with_bf16_update(population, tmp_path, monkeypatch):
         assert not bad, bad
 
 
+@pytest.mark.parametrize("population", [0, 2])
+def test_driver_spends_a_budget_that_is_not_a_multiple_of_the_batch(
+        population, tmp_path):
+    """3000 steps at a 2048-step batch: two iterations, the last one past
+    the budget, as JAX train.py's `while gstep < total_timesteps` loop; the
+    learning-rate anneal is still sized by n_iterations (= 1, as JAX
+    learner.py sizes optax's schedule), so the second iteration runs at
+    its clamped lr 0."""
+    extra = (["--population", str(population), "--reval-episodes", "0",
+              "--out-dir", str(tmp_path)] if population else [])
+    argv = ["--device", "cpu", "--preset", "tpu", "--n-envs", "64",
+            "--n-steps", "32", "--minibatch-size", "512", "--total-steps",
+            "3000", "--eval-episodes", "4", "--anneal-lr"] + extra
+    rows = train.run(train.parse_args(argv))
+    assert [r["iteration"] for r in rows] == [1, 2]
+    assert rows[-1]["global_step"] == 4096
+    cfg = train.build_config(train.parse_args(argv))
+    opt = learner.Optimizer(cfg)
+    assert cfg.n_iterations == 1
+    assert opt.total_updates == cfg.n_epochs * cfg.n_minibatches
+    assert opt.step_size(opt.total_updates) == 0.0
+    assert opt.step_size(2 * opt.total_updates) == 0.0
+
+
 @pytest.mark.parametrize("flag", [["--checkpoint-every", "32768"],
                                   ["--gpus", "2"]])
 def test_driver_does_not_know_unported_modes(flag, capsys):
