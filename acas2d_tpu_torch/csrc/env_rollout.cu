@@ -19,13 +19,22 @@
 // e / 1024, and the step counter is the loop index 0 .. T-1.
 //
 // What bounds it on an H100: the state is read and written once per launch
-// (9 arrays in, 14 out: 92 bytes per env), while every step runs ~25 IEEE
-// transcendentals, square roots and divides and ~220 other float32
-// operations, so the work is operations, not bytes.  Design: one thread per
-// env, the state in registers, a loop over the T steps; the respawn runs
-// only where an episode ended.  ZERO_ACTIONS and WITH_OBS are template
-// parameters, so the default launch carries no observation code.  At the
-// headline shape (B = 262,144) that is 2,048 blocks of 128 threads.
+// (9 arrays in, 14 out: 92 bytes per env), while every step runs ~20 square
+// roots, sines and divides and ~200 other float32 operations, so the work
+// is operations, and the card's time goes to issuing their instructions
+// (no products, no tiles: shared memory and tensor cores have no role).
+// Design: one thread per env, the state in registers, a loop over the T
+// steps.  The instructions a step issues are cut where the arithmetic
+// allows: the respawn runs only where an episode ended; the observation
+// of a lane whose episode went on is the state the reward's geometry just
+// measured, so only a respawned lane computes a second geometry (the
+// Pallas kernel computes it for every lane, at no cost on the TPU's
+// lock-step lanes); one divide per arctan (step_math.cuh); and the loop's
+// sines come from one bounded-range reduction a sin/cos pair
+// (acas::BoundedTrig: every angle there lies within |x| < 8).  ZERO_ACTIONS
+// and WITH_OBS are template parameters, so the default launch carries no
+// observation code.  At the headline shape (B = 262,144) that is 2,048
+// blocks of 128 threads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,6 +43,11 @@
 namespace {
 
 constexpr int THREADS = 128;
+// The registers a thread may use: 8 blocks an SM leave it up to 64, and
+// ptxas takes 54-56 (without the minimum it took 46-51 and fitted 9-10
+// blocks, which ran 1.4% slower without obs: PERF.md, env_ab)
+constexpr int MIN_BLOCKS = 8;
+using Trig = acas::BoundedTrig;   // the loop's sines (the angles are bounded)
 constexpr int N_IN = 9;    // px, py, psi, tx, ty, tv, tpsi, steps, total_reward
 constexpr int N_OUT = 14;  // the same nine, then reward_sum, episodes, goals,
                            // collisions, obs_sum
@@ -58,7 +72,7 @@ __device__ __forceinline__ void store_i(const Buffers& b, int k, int e,
 }
 
 template <bool ZERO_ACTIONS, bool WITH_OBS>
-__global__ void __launch_bounds__(THREADS) env_rollout_kernel(
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) env_rollout_kernel(
     const acas::RolloutConsts c, int B, int T, uint32_t seed,
     const Buffers buf) {
   const int e = blockIdx.x * THREADS + threadIdx.x;
@@ -72,8 +86,11 @@ __global__ void __launch_bounds__(THREADS) env_rollout_kernel(
   float tpsi = load_f(buf, 6, e);
   int steps = static_cast<const int*>(buf.in[7])[e];
   float tot = load_f(buf, 8, e);
-  float tcos = cosf(tpsi * acas::kDeg2Rad);
-  float tsin = sinf(tpsi * acas::kDeg2Rad);
+  // the traffic's heading wrapped to [0, 360) first, as every heading the
+  // env makes already is (mod360 is exact there), so that the bounded
+  // routine applies to whatever the caller passes
+  float tcos, tsin;
+  Trig::sincos(acas::mod360(tpsi) * acas::kDeg2Rad, &tsin, &tcos);
   float rs = 0.0f, os = 0.0f;
   int ec = 0, gc = 0, cc = 0;
 
@@ -86,15 +103,16 @@ __global__ void __launch_bounds__(THREADS) env_rollout_kernel(
     // integrate player + traffic (aircraft.py:16-26)
     psi = acas::mod360(psi + a_lat / c.v);
     const float pr = psi * acas::kDeg2Rad;
-    const float cp = cosf(pr), sp = sinf(pr);
+    float cp, sp;
+    Trig::sincos(pr, &sp, &cp);
     px = px + c.v * cp * c.dt;
     py = py + c.v * sp * c.dt;
     tx = tx + tv * tcos * c.dt;
     ty = ty + tv * tsin * c.dt;
     steps += 1;
 
-    const acas::Geom g = acas::env_geometry(c, px, py, cp, sp, psi, tx, ty,
-                                            tv, tcos, tsin, a_lat);
+    const acas::Geom g = acas::env_geometry<Trig>(c, px, py, cp, sp, psi, tx,
+                                                  ty, tv, tcos, tsin, a_lat);
     const float r_step =
         acas::shaped_step_reward(c, psi, g.h_goal_rad * acas::kRad2Deg, g);
     const bool collided = g.d_sep < c.coll_dist;
@@ -127,20 +145,22 @@ __global__ void __launch_bounds__(THREADS) env_rollout_kernel(
       tv = c.v;
       tpsi = acas::mod360(145.0f + sd * 70.0f
                           + (rb_tpsi * 2.0f - 1.0f) * c.traffic_lim);
-      const float ftr = tpsi * acas::kDeg2Rad;
-      tcos = cosf(ftr);
-      tsin = sinf(ftr);
+      Trig::sincos(tpsi * acas::kDeg2Rad, &tsin, &tcos);
       steps = 1;
       tot = 0.0f;
     }
 
     if (WITH_OBS) {
-      // the post-respawn observation; the lookahead holds the live a_lat
-      const float a_live = done ? 0.0f : a_lat;
-      const float pr2 = psi * acas::kDeg2Rad;
-      const acas::Geom o = acas::env_geometry(c, px, py, cosf(pr2), sinf(pr2),
-                                              psi, tx, ty, tv, tcos, tsin,
-                                              a_live);
+      // The post-respawn observation.  Where the episode went on, its
+      // geometry is g: the same state and the live a_lat in the lookahead.
+      // A respawned lane measures its new state, with a_lat = 0.
+      acas::Geom o = g;
+      if (done) {
+        float cp2, sp2;
+        Trig::sincos(psi * acas::kDeg2Rad, &sp2, &cp2);
+        o = acas::env_geometry<Trig>(c, px, py, cp2, sp2, psi, tx, ty, tv,
+                                     tcos, tsin, 0.0f);
+      }
       // one feature at a time, in the Pallas kernel's order (:311-320)
       os = os + (float)steps * c.inv_max_steps;
       os = os + psi * acas::kInv360;
@@ -169,6 +189,22 @@ __global__ void __launch_bounds__(THREADS) env_rollout_kernel(
   store_f(buf, 13, e, os);
 }
 
+// out = registers a thread, local memory bytes a thread (stack frame and
+// spills), resident blocks an SM
+template <bool Z, bool O>
+cudaError_t attrs(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, env_rollout_kernel<Z, O>);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, env_rollout_kernel<Z, O>, THREADS, 0);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = blocks;
+  return err;
+}
+
 template <bool Z, bool O>
 cudaError_t launch(const acas::RolloutConsts& c, int B, int T, uint32_t seed,
                    const Buffers& buf, cudaStream_t stream) {
@@ -183,6 +219,17 @@ extern "C" {
 
 const char* acas_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// The instantiation for (zero_actions, with_obs) as built for this card:
+// out[3] as attrs() fills it.  Returns the CUDA error code.
+int acas_env_rollout_attrs(int zero_actions, int with_obs, int* out) {
+  cudaError_t err;
+  if (zero_actions)
+    err = with_obs ? attrs<true, true>(out) : attrs<true, false>(out);
+  else
+    err = with_obs ? attrs<false, true>(out) : attrs<false, false>(out);
+  return (int)err;
 }
 
 // B envs, T steps.  ins: 9 device pointers of (B,) arrays, px, py, psi, tx,

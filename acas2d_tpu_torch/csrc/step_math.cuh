@@ -5,8 +5,11 @@
 // is bit-identical to the Pallas kernels'; the float math follows their op
 // order, with the parameter-dependent constants passed in as float64 values
 // rounded to float32 on the host (RolloutConsts), never divided here.
-// Uses the IEEE sinf/cosf/expf/logf/sqrtf/tanhf (no fast-math intrinsics)
-// and the Cephes arctan polynomial of the Pallas kernels, not atanf.
+// Uses the IEEE sqrtf and division (no fast-math intrinsics) and the Cephes
+// arctan polynomial of the Pallas kernels, not atanf.  The geometry's sines
+// come from its Trig parameter: IeeeTrig (sinf/cosf, the policy rollout's)
+// or BoundedTrig (one shared reduction a sin/cos pair, for |x| <= 8 only:
+// the env-only rollout's).
 #pragma once
 
 #include <stdint.h>
@@ -53,8 +56,12 @@ __device__ __forceinline__ float atan_ceph(float x) {
   float ax = fabsf(x);
   bool big = ax > 2.414213562373095f;   // tan(3*pi/8)
   bool mid = ax > 0.4142135623730950f;  // tan(pi/8)
-  float safe = fmaxf(ax, 1e-30f);
-  float xr = big ? (-1.0f / safe) : (mid ? (ax - 1.0f) / (ax + 1.0f) : ax);
+  // one divide with selected operands: -1 / ax, (ax - 1) / (ax + 1) or
+  // ax / 1, bit for bit the reference's select of three (where big, ax
+  // exceeds its 1e-30 floor)
+  float num = big ? -1.0f : (mid ? ax - 1.0f : ax);
+  float den = big ? ax : (mid ? ax + 1.0f : 1.0f);
+  float xr = num / den;
   float off = big ? (float)(3.14159265358979323846 / 2)
                   : (mid ? (float)(3.14159265358979323846 / 4) : 0.0f);
   float z = xr * xr;
@@ -76,9 +83,59 @@ __device__ __forceinline__ float mod360(float x) {
   return x - 360.0f * floorf(x * kInv360);
 }
 
+// x - 2pi * floor(x / 2pi) for x = atan2_ceph(..), which lies in
+// [-pi, pi]: there the floor is -1 from x <= -0x1p-147 down, and 0 above
+// (a quotient of a smaller negative denormal rounds to -0).  The + 0.0f
+// turns -0 into +0, as the reference's subtraction does.
 __device__ __forceinline__ float mod2pi(float x) {
-  return x - kTwoPi * floorf(x / kTwoPi);
+  return x <= -0x1p-147f ? x + kTwoPi : x + 0.0f;
 }
+
+// sinf / cosf (the CUDA Math API's, 2 ulp, any x): the policy rollout's.
+struct IeeeTrig {
+  static __device__ __forceinline__ float sin(float x) { return sinf(x); }
+  static __device__ __forceinline__ void sincos(float x, float* s,
+                                                float* c) {
+    *s = sinf(x);
+    *c = cosf(x);
+  }
+};
+
+// sin and cos for |x| <= 8 only, within 1 ulp of the correctly rounded
+// value there (the CUDA Math API documents 2 for sinf/cosf).  Every angle
+// of the env step lies there: headings wrapped to [0, 360) degrees,
+// bearings in [0, 2pi], a bearing less an arctan.  One Cody-Waite
+// reduction by pi/2 (three float32 parts, fused multiply-adds) serves a
+// sin/cos pair; the Cephes polynomials on [-pi/4, pi/4]; the quadrant
+// selects and signs.  No slow path for large x, so no local memory.  The
+// CPU tests emulate it bit for bit (tests/test_torch_env_rollout_redesign.py).
+struct BoundedTrig {
+  static __device__ __forceinline__ void sincos(float x, float* s,
+                                                float* c) {
+    // 1.5 * 2^23 + round(x * 2/pi): the quadrant in the low bits
+    const float t = fmaf(x, 0x1.45f306p-1f, 12582912.0f);
+    const int q = __float_as_int(t);
+    const float j = t - 12582912.0f;
+    float r = fmaf(-j, 0x1.921fb6p+0f, x);   // pi/2 = the three parts' sum
+    r = fmaf(-j, -0x1.777a5cp-25f, r);
+    r = fmaf(-j, -0x1.ee59dap-50f, r);
+    const float z = r * r;
+    float ps = fmaf(fmaf(-0x1.9943f2p-13f, z, 0x1.11073cp-7f), z,
+                    -0x1.555546p-3f) * z;
+    ps = fmaf(ps, r, r);
+    const float pc = fmaf(fmaf(fmaf(fmaf(0x1.99eb9cp-16f, z, -0x1.6c0c34p-10f),
+                                    z, 0x1.55554ap-5f), z, -0.5f), z, 1.0f);
+    const float sv = (q & 1) ? pc : ps;
+    const float cv = (q & 1) ? ps : pc;
+    *s = (q & 2) ? -sv : sv;
+    *c = ((q + 1) & 2) ? -cv : cv;
+  }
+  static __device__ __forceinline__ float sin(float x) {
+    float s, c;
+    sincos(x, &s, &c);
+    return s;
+  }
+};
 
 struct Geom {
   float d_goal, h_goal_rad, d_dev, d_sep, d_cpa, v_closing;
@@ -86,6 +143,7 @@ struct Geom {
 
 // Player/goal/traffic geometry with the reference's bug_compat quirks
 // (kinematics.py:47,57,67,74), as pallas_step.py:env_geometry states it.
+template <class Trig = IeeeTrig>
 __device__ __forceinline__ Geom env_geometry(
     const RolloutConsts& c, float px, float py, float cp, float sp,
     float psi, float tx, float ty, float tv, float tcos, float tsin,
@@ -94,17 +152,19 @@ __device__ __forceinline__ Geom env_geometry(
   float dxg = c.gx - px, dyg = c.gy - py;
   g.d_goal = sqrtf(dxg * dxg + dyg * dyg);
   g.h_goal_rad = mod2pi(atan2_ceph(dyg, dxg));
-  g.d_dev = g.d_goal * sinf(g.h_goal_rad);
+  g.d_dev = g.d_goal * Trig::sin(g.h_goal_rad);
   float dxt = tx - px, dyt = ty - py;
   g.d_sep = sqrtf(dxt * dxt + dyt * dyt);
   float v12x = c.v * cp - tv * tcos;
   float v12y = c.v * sp - tv * tsin;
   float h_rel = atan_ceph(v12y / (v12x == 0.0f ? 1e-30f : v12x));
   float a_rel = mod2pi(atan2_ceph(dyt, dxt));
-  g.d_cpa = g.d_sep * sinf(a_rel - h_rel);
+  g.d_cpa = g.d_sep * Trig::sin(a_rel - h_rel);
   float psi1l = (psi + (a_lat / c.v) * c.dt) * kDeg2Rad;
-  float vx1 = c.v * cosf(psi1l) * c.dt;
-  float vy1 = c.v * sinf(psi1l) * c.dt;
+  float s1, c1;
+  Trig::sincos(psi1l, &s1, &c1);
+  float vx1 = c.v * c1 * c.dt;
+  float vy1 = c.v * s1 * c.dt;
   float vx2 = tv * tcos * c.dt;
   float vy2 = c.v * tsin * c.dt;  // bug_compat: player speed, not tv
   float dpx = (px + vx1) - (tx + vx2);

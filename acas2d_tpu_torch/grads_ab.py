@@ -21,7 +21,8 @@ import ctypes
 import json
 import subprocess
 import sys
-from typing import Dict, List, Tuple
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -51,8 +52,12 @@ VARIANTS = {
 SHAPES = {"solo": (1, 65536), "members": (32, 32768)}
 
 
-def build(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
-    """{name: source text} -> {name: loaded library}, one nvcc each."""
+def build(sources: Dict[str, str],
+          include: Optional[Dict[str, Path]] = None
+          ) -> Dict[str, ctypes.CDLL]:
+    """{name: source text} -> {name: loaded library}, one nvcc each, all
+    at once, under `_build/ab/`.  A source finds its headers in
+    include[name], else in the package's csrc/."""
     out_dir = _cuda.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -60,7 +65,8 @@ def build(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
         src = out_dir / f"{name}.cu"
         src.write_text(text)
         lib = out_dir / f"lib{name}.so"
-        cmd = [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC),
+        inc = (include or {}).get(name, _cuda.CSRC)
+        cmd = [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", str(inc),
                "-o", str(lib), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

@@ -13,11 +13,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Optional, Tuple
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -91,25 +92,53 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+_SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s*(.*)$")
+
+Instr = Tuple[int, str, Optional[int]]
+
+
+def parse_sass(text: str) -> Dict[str, List[Instr]]:
+    """`cuobjdump -sass` output -> {mangled function name: [(address,
+    opcode with its modifiers (predicate dropped), branch target or
+    None)]}."""
+    fns: Dict[str, List[Instr]] = {}
+    cur = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = fns.setdefault(line.split("Function :")[1].strip(), [])
+            continue
+        m = _SASS_LINE.match(line)
+        if cur is None or not m:
+            continue
+        body = m.group(2).split(";")[0].split()
+        if body and body[0].startswith("@"):
+            body = body[1:]
+        if not body:
+            continue
+        hexes = [t.rstrip(",") for t in body[1:] if t.startswith("0x")]
+        target = (int(hexes[-1], 16) if body[0].startswith("BRA") and hexes
+                  else None)
+        cur.append((int(m.group(1), 16), body[0], target))
+    return fns
+
+
+def sass_listing(lib_file: Path) -> Dict[str, List[Instr]]:
+    """`parse_sass` of `cuobjdump -sass` of a built library."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    return parse_sass(subprocess.run([tool, "-sass", str(lib_file)],
+                                     capture_output=True, text=True,
+                                     check=True).stdout)
+
+
 def sass_ops(name: str, functions: Iterable[str]) -> Dict[str, Dict[str, int]]:
     """`cuobjdump -sass` of the built library of csrc/<name>.cu: for each
     of `functions` (a substring of a kernel's mangled name), its
     instructions counted by opcode (predicates dropped, modifiers kept,
     e.g. `HMMA.16816.F32.BF16`)."""
-    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lib_path(name))],
-                          capture_output=True, text=True, check=True).stdout
-    fn, ops = None, {f: {} for f in functions}
-    for line in sass.splitlines():
-        if "Function :" in line:
-            mangled = line.split("Function :")[1]
-            fn = next((f for f in ops if f in mangled), None)
-        elif fn and "/*" in line:
-            body = line.split("*/", 1)[-1].strip().split(";")[0].split()
-            if not body:
-                continue
-            op = body[1] if body[0].startswith("@") and len(body) > 1 \
-                else body[0]
+    ops: Dict[str, Dict[str, int]] = {f: {} for f in functions}
+    for mangled, instrs in sass_listing(lib_path(name)).items():
+        fn = next((f for f in ops if f in mangled), None)
+        for _, op, _ in instrs if fn else ():
             ops[fn][op] = ops[fn].get(op, 0) + 1
     return ops
 

@@ -7,7 +7,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      one nvcc per source, all at once; the registers, spills, shared memory
      and blocks an SM of the gradient kernel's two variants, and their
      instructions from `cuobjdump -sass`, which must include tensor-core
-     HMMAs of their type (TF32 for f32, BF16 for bf16);
+     HMMAs of their type (TF32 for f32, BF16 for bf16); the registers,
+     local memory and blocks an SM of the env rollout's four
+     instantiations, and their instructions by kind, in all and in the
+     T-step loop's body;
   2. the rollout kernel against its plain PyTorch version, same seed,
      weights and state: the public wrapper on tensors on the card against
      the same call on copies on the CPU.  Solo (B = 2048 envs, K = 16) and
@@ -57,7 +60,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      against its plain version at the headline shape, on the state each
      of the bench's measures left, then timed in chained launches from
      there: the kernel alone, and the wall per launch as the bench
-     launches, whose difference is the card's idle share.
+     launches, whose difference is the card's idle share; beside it, the
+     time the launch would take at the card's full issue rate (4
+     instructions a clock an SM) if every instruction of its loop body,
+     the rare paths included, issued every step: an upper bound of that
+     time from the static count, not a measured share.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -217,6 +224,7 @@ def phase_build():
               f"thread, {static + dynamic} bytes of shared memory a block, "
               f"{per_sm} blocks ({per_sm * 8} warps) an SM")
     sass_census()
+    env_census()
 
 
 def sass_census():
@@ -237,6 +245,21 @@ def sass_census():
         want = ".BF16" if bf16 else ".TF32"
         check(hmma and all(want in k for k in hmma),
               f"{name} runs no {want[1:]} HMMA, or another kind")
+
+
+def env_census():
+    """The env rollout's four instantiations as built: registers, local
+    memory (stack frame and spills), blocks an SM, and their SASS by kind
+    (`env_rollout.sass_census`), the whole kernel and its loop's body."""
+    census = env_rollout.sass_census()
+    for (zero, obs), c in census.items():
+        regs, local, per_sm = env_rollout.kernel_attrs(zero, obs)
+        tag = f"{'zero' if zero else 'random'} {'obs' if obs else 'no obs'}"
+        print(f"[build] env_rollout {tag}: {regs} registers, {local} bytes "
+              f"of local memory a thread, {per_sm} blocks of 128 an SM")
+        for part in ("kernel", "loop"):
+            print(f"[build] env_rollout {tag} SASS, {part}: "
+                  + ", ".join(f"{k} {v}" for k, v in c[part].items()))
 
 
 # ------------------------------------------------------------------ phase 2
@@ -927,14 +950,23 @@ def time_grads(args):
     return ms, plain_ms, min(cores, tensor)
 
 
-# Operations of csrc/env_rollout.cu, counted from its source (step_math.cuh
-# included) by unit: "f32" one per float32 add, multiply, compare, select,
-# min/max or floor; "sfu" one per IEEE sinf, cosf, sqrtf or division;
-# "int" one per 32-bit integer op of the hash and the counters.
-ENV_STEP_OPS = {"f32": 218, "sfu": 25, "int": 9}      # every env-step
+# Operations the env rollout's semantics need (csrc/env_rollout.cu and
+# step_math.cuh), by unit: "f32" one per float32 add, multiply, compare,
+# select, min/max or floor; "sfu" one per sine, cosine, square root or
+# division, the least a special-function unit could do for each; "int" one
+# per 32-bit integer op of the hash and the counters.  A step: the heading
+# pair, a_lat / v once, four square roots (three in the geometry, one in
+# the reward), four sines, and the geometry's eight divides (one in each of
+# its three arctans, the two arctan2 quotients, the arctan's operand, the
+# closing speed's two); the 2pi wraps are selects.  With obs, the eight
+# features and their sum every step, and the new state's heading pair and
+# geometry only where an episode ended: an episode that goes on observes
+# the state its reward measured.
+ENV_STEP_OPS = {"f32": 221, "sfu": 19, "int": 9}      # every env-step
 ENV_ACTION_OPS = {"f32": 3, "int": 14}                # random actions only
-ENV_OBS_OPS = {"f32": 174, "sfu": 23}                 # with_obs only
+ENV_OBS_OPS = {"f32": 18}                             # with_obs, every step
 ENV_RESPAWN_OPS = {"f32": 29, "sfu": 2, "int": 42}    # per episode end
+ENV_OBS_RESPAWN_OPS = {"f32": 159, "sfu": 18}         # with_obs, per end
 
 
 def env_rollout_ops(B, T, episodes, zero_actions, with_obs):
@@ -942,7 +974,8 @@ def env_rollout_ops(B, T, episodes, zero_actions, with_obs):
     ops = {u: n * steps for u, n in ENV_STEP_OPS.items()}
     for table, n in ((ENV_ACTION_OPS, 0 if zero_actions else steps),
                      (ENV_OBS_OPS, steps if with_obs else 0),
-                     (ENV_RESPAWN_OPS, episodes)):
+                     (ENV_RESPAWN_OPS, episodes),
+                     (ENV_OBS_RESPAWN_OPS, episodes if with_obs else 0)):
         for u, k in table.items():
             ops[u] = ops.get(u, 0) + k * n
     return ops
@@ -1012,6 +1045,19 @@ def time_env_rollout(args):
     n_bytes = 4 * B * (9 + 14)             # nine arrays in, fourteen out
     per_launch = sum(int(e.sum()) for e in episodes) / CHAIN
     ops = env_rollout_ops(B, T, per_launch, False, with_obs)
+    loop = env_rollout.sass_census()[(False, with_obs)]["loop"]["all"]
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_ms = loop * (B // 32) * T / (4 * sms * clock_mhz * 1e6) * 1e3
+    print(f"[{tag}] {per_launch:.0f} episode ends a launch; upper bound of "
+          f"the issue time, from the static count: the loop body's {loop} "
+          f"instructions, every rare path included, each issued every "
+          f"warp-step at the full rate (4 a clock on each of {sms} SMs at "
+          f"{clock_mhz:.0f} MHz): {issue_ms:.4f} ms a launch, against "
+          f"{ms:.4f} ms measured")
     return ms, plain_ms, bound_ops(n_bytes, ops), err
 
 

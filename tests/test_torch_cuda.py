@@ -218,6 +218,35 @@ def test_env_rollout_kernel_matches_plain(cuda, B, T, mode):
 
 
 @pytest.mark.cuda
+def test_env_rollout_obs_repeats_bit_for_bit_at_scale(cuda):
+    """With obs, a lane that respawned takes another path through the step
+    than its warp's other lanes; the results still repeat bit for bit."""
+    st = _env_state(32768, cuda)
+    got = [env_rollout.fused_rollout(st, 11, 256, DEFAULT_PARAMS,
+                                     with_obs=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    (a, sa), (b, sb) = got
+    assert int(sa["episodes"].sum()) > 0
+    for k, v in {**a, **sa}.items():
+        assert torch.equal(v, {**b, **sb}[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_actions", [False, True])
+@pytest.mark.parametrize("with_obs", [False, True])
+def test_env_rollout_kernel_uses_no_local_memory(cuda, zero_actions,
+                                                 with_obs):
+    """The loop's sines are the bounded routine, which has no slow path
+    for large arguments: no stack frame, no spill, no local loads or
+    stores anywhere in the kernel."""
+    regs, local, per_sm = env_rollout.kernel_attrs(zero_actions, with_obs)
+    assert local == 0 and per_sm > 0, (regs, local, per_sm)
+    census = env_rollout.sass_census()[(zero_actions, with_obs)]
+    assert census["kernel"]["LDL"] == census["kernel"]["STL"] == 0, census
+    assert census["loop"]["all"] > 0, census
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("P,n", [(1, 65536), (1, 1000), (4, 8192),
                                  (32, 32768)])
 def test_bf16_grads_kernel_matches_plain(cuda, P, n):

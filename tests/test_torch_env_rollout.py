@@ -180,6 +180,20 @@ def _perturbed(state0, how):
         got["steps"][5] += 1
     elif how == "position":
         got["px"][7] += 1.0
+    elif how == "reward_branch":
+        got["reward_sum"][9] += 0.4
+        got["total_reward"][9] += 0.4
+    elif how == "reward_off":
+        got["reward_sum"][9] += 1.5
+    elif how == "reward_branch_position":
+        got["reward_sum"][9] += 0.4
+        got["px"][9] += 1.0
+    elif how == "reward_branch_obs":
+        got["reward_sum"][9] += 0.4
+        got["obs_sum"][9] += 0.5
+    elif how == "reward_branch_total":
+        got["reward_sum"][9] += 0.4
+        got["total_reward"][9] += 1.5
     return got, want
 
 
@@ -191,12 +205,19 @@ def _perturbed(state0, how):
     ("obs_wrap_3", 3, ["3 envs flipped"]),
     ("episode_end", 1, []),
     ("position", 0, ["px"]),
+    ("reward_branch", 1, []),
+    ("reward_off", 0, ["reward_sum"]),
+    ("reward_branch_position", 1, ["px"]),
+    ("reward_branch_obs", 1, ["obs_sum"]),
+    ("reward_branch_total", 1, ["total_reward of a reward flip"]),
 ])
 def test_agreement_rule(state0, how, n_flipped, failed):
     """`env_rollout.agreement`, the rule the card holds the kernel to: an
-    integer or a whole-number obs_sum difference is a threshold flip
-    (at most 0.1% of the envs, 2 of 2048), the heading differs by 360
-    only at its wrap, and a position by no more than its ulps."""
+    integer, a whole-number obs_sum or an at most unit reward_sum
+    difference is a threshold flip (at most 0.1% of the envs, 2 of 2048),
+    the heading differs by 360 only at its wrap, and a position by no more
+    than its ulps.  A reward flip frees only the reward sums: that env's
+    state and obs_sum stay held."""
     got, want = _perturbed(state0, how)
     flipped, errs, bad = env_rollout.agreement(got, want, 4)
     assert len(flipped) == n_flipped
