@@ -7,8 +7,8 @@ Builds the package's source ("kernel"), each named variant of it (the
 package's env_rollout.cu and step_math.cuh with one part taken out or
 changed by a text edit) and each other source directory given (a parent
 commit's csrc/, unpacked with `git archive`: its env_rollout.cu is compiled
-against its own step_math.cuh), with `grads_ab.build`, one nvcc each, all
-at once.  Then, at the bench's headline shape (B = 262,144 envs, T = 256
+against its own step_math.cuh), with `ab.build`, one nvcc each, all at
+once.  Then, at the bench's headline shape (B = 262,144 envs, T = 256
 steps a launch, seed 7), from a state the package's kernel flew 1,024 steps
 from the bench's spawns, so that episodes end every step:
 
@@ -20,7 +20,7 @@ from the bench's spawns, so that episodes end every step:
 - one launch of each build, without and with obs, timed with CUDA events
   while the card works through launches queued behind a sleep (as
   chip_smoke.py:chain), in turns: every build forward, then backward,
-  twice (a, b, b, a);
+  twice (a, b, b, a) (`ab.time_turn`);
 - each build's instructions from `cuobjdump -sass`, by kind, in the whole
   kernel and in its T-step loop (`env_rollout.sass_census`), and, where the
   build has the entry point, its registers, local memory and blocks an SM.
@@ -33,18 +33,17 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 from typing import Dict, List, Tuple
 
 import torch
 
+from acas2d_tpu_torch.ab import build, smi, source_dirs, time_turn
 from acas2d_tpu_torch.bench import SEED
 from acas2d_tpu_torch.config import DEFAULT_PARAMS
 from acas2d_tpu_torch.envs import vector
-from acas2d_tpu_torch.grads_ab import build
-from acas2d_tpu_torch.ops import _cuda, env_rollout
+from acas2d_tpu_torch.ops import env_rollout
 from acas2d_tpu_torch.ops import step_math as sm
 
 FILES = ("env_rollout.cu", "step_math.cuh")
@@ -87,34 +86,6 @@ B, T, FLOWN = 262144, 256, 1024
 CHAIN = 8                 # timed launches a turn
 
 
-def variant_files(files: Dict[str, str],
-                  edits: List[Tuple[str, str, str]]) -> Dict[str, str]:
-    """The sources {file name: text} with the edits applied."""
-    files = dict(files)
-    for name, old, new in edits:
-        if old not in files[name]:
-            raise ValueError(f"variant edit of {name} {old!r} matches "
-                             f"nothing")
-        files[name] = files[name].replace(old, new)
-    return files
-
-
-def source_dirs(variants: List[str], others: Dict[str, Path]
-                ) -> Dict[str, Path]:
-    """{build name: directory holding its env_rollout.cu and headers}: the
-    package's csrc/, each variant written under `_build/ab/`, the others."""
-    base = {f: (_cuda.CSRC / f).read_text() for f in FILES}
-    dirs = {"kernel": _cuda.CSRC}
-    for v in variants:
-        d = _cuda.BUILD_DIR / "ab" / f"env-{v}"
-        d.mkdir(parents=True, exist_ok=True)
-        for f, text in variant_files(base, VARIANTS[v]).items():
-            (d / f).write_text(text)
-        dirs[v] = d
-    dirs.update(others)
-    return dirs
-
-
 def flown_state() -> Dict[str, torch.Tensor]:
     """The bench's spawns on the card flown FLOWN steps by the package's
     kernel."""
@@ -139,26 +110,6 @@ def differing(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor]
     return out
 
 
-def time_turn(run) -> float:
-    """Mean ms of CHAIN launches that queue behind a sleep of the card."""
-    events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
-              for _ in range(CHAIN)]
-    torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)
-    for e0, e1 in events:
-        e0.record()
-        run()
-        e1.record()
-    torch.cuda.synchronize()
-    return sum(e0.elapsed_time(e1) for e0, e1 in events) / CHAIN
-
-
-def smi(query: str) -> str:
-    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         description=__doc__,
@@ -175,11 +126,8 @@ def main(argv=None) -> int:
     for spec in args.source:
         name, path = spec.split("=", 1)
         others[name] = Path(path).resolve()
-    dirs = source_dirs(args.variants, others)
-    libs = build({f"env-{n}": (d / "env_rollout.cu").read_text()
-                  for n, d in dirs.items()},
-                 {f"env-{n}": d for n, d in dirs.items()})
-    libs = {n: libs[f"env-{n}"] for n in dirs}
+    dirs = source_dirs("env", FILES, VARIANTS, args.variants, others)
+    libs = build("env_rollout.cu", dirs, "env")
     consts = sm.kernel_constants(DEFAULT_PARAMS)
     st = flown_state()
 
@@ -206,7 +154,7 @@ def main(argv=None) -> int:
         for name in order:
             for mode in ("random", "random obs"):
                 ms[name].setdefault(mode, []).append(
-                    time_turn(lambda: run(name, mode)))
+                    time_turn(lambda: run(name, mode), CHAIN))
     clocks = smi("clocks.sm,clocks.max.sm")     # as the timed launches end
     census = {}
     for name, lib in libs.items():

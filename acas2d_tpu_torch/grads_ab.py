@@ -1,92 +1,60 @@
 """A/B timing of the PPO-gradient kernel (csrc/ppo_grads.cu) on the card.
 
     python -m acas2d_tpu_torch.grads_ab [--variants no_mma no_tanh ...]
-        [--source parent=path/to/ppo_grads.cu ...]
+        [--source parent=path/to/csrc ...]
 
 Builds the package's source ("kernel"), each named variant of it (the
-source with one part taken out by a text edit: its results are wrong, only
-its time counts) and each other source given (a parent commit's, say),
-into its own library under `_build/ab/`, one nvcc each, all at once.  Then
-it times one launch (both passes) of each at the main-path shapes, solo
-(N = 65,536) and P = 32 members (N = 32,768 each), f32 and bf16, with CUDA
-events, in turns: every build forward, then backward, twice (a, b, b, a).
-It prints one JSON line: the card's name and power limit and, per build
-and setting, the ms of each turn.
+package's ppo_grads.cu and tf32x3.cuh with one part taken out by a text
+edit: its results are wrong, only its time counts) and each other source
+directory given (a parent commit's csrc/, say: its ppo_grads.cu against its
+own headers), into its own library under `_build/ab/`, one nvcc each, all
+at once (`ab.build`).  Then it times one launch (both passes) of each at
+the main-path shapes, solo (N = 65,536) and P = 32 members (N = 32,768
+each), f32 and bf16, with CUDA events, in turns: every build forward, then
+backward, twice (a, b, b, a).  It prints one JSON line: the card's name and
+power limit, per build and setting the ms of each turn, and per build each
+first pass's SASS instructions counted by opcode (`cuobjdump -sass`).
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List
 
 import torch
 
+from acas2d_tpu_torch.ab import build, smi, source_dirs
 from acas2d_tpu_torch.models.actor_critic import ActorCritic, flatten
 from acas2d_tpu_torch.ops import _cuda, ppo_grads
 
-# variant: (old text, new text) edits of csrc/ppo_grads.cu, every
-# occurrence replaced; each must occur
+FILES = ("ppo_grads.cu", "tf32x3.cuh")
+# variant: [(file, old text, new text)] edits of the package's sources
 VARIANTS = {
     # no tensor-core product: the mma.sync instructions are skipped
-    "no_mma": [('asm("mma.sync', 'if (0) asm("mma.sync')],
+    "no_mma": [("ppo_grads.cu", 'asm("mma.sync', 'if (0) asm("mma.sync'),
+               ("tf32x3.cuh", 'asm("mma.sync', 'if (0) asm("mma.sync')],
     # no ldmatrix: fragments are a lane's id
-    "no_ldmatrix": [('asm volatile("ldmatrix',
+    "no_ldmatrix": [("ppo_grads.cu", 'asm volatile("ldmatrix',
                      'for (auto& x : r) x = threadIdx.x;\n  '
                      'if (0) asm volatile("ldmatrix')],
     # no tanhf: h = the pre-activation
-    "no_tanh": [("tanhf(", "(")],
+    "no_tanh": [("ppo_grads.cu", "tanhf(", "(")],
     # no named barriers between the two warps of a row tile
-    "no_pair_sync": [('asm volatile("bar.sync',
+    "no_pair_sync": [("ppo_grads.cu", 'asm volatile("bar.sync',
                       'if (0) asm volatile("bar.sync')],
     # no bf16 copies written: the products read whatever the copies hold
     "no_bf16_copies": [
-        ("if constexpr (BF16) e2b[", "if constexpr (false) e2b["),
-        ("if constexpr (BF16) e1b[", "if constexpr (false) e1b["),
-        ("store_c<BF16>(h1", "store_c(h1")],
+        ("ppo_grads.cu", "if constexpr (BF16) e2b[",
+         "if constexpr (false) e2b["),
+        ("ppo_grads.cu", "if constexpr (BF16) e1b[",
+         "if constexpr (false) e1b["),
+        ("ppo_grads.cu", "store_c<BF16>(h1", "store_c(h1")],
 }
 SHAPES = {"solo": (1, 65536), "members": (32, 32768)}
-
-
-def build(sources: Dict[str, str],
-          include: Optional[Dict[str, Path]] = None
-          ) -> Dict[str, ctypes.CDLL]:
-    """{name: source text} -> {name: loaded library}, one nvcc each, all
-    at once, under `_build/ab/`.  A source finds its headers in
-    include[name], else in the package's csrc/."""
-    out_dir = _cuda.BUILD_DIR / "ab"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        src = out_dir / f"{name}.cu"
-        src.write_text(text)
-        lib = out_dir / f"lib{name}.so"
-        inc = (include or {}).get(name, _cuda.CSRC)
-        cmd = [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", str(inc),
-               "-o", str(lib), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name} exited {proc.returncode}:"
-                               f"\n{log}")
-        libs[name] = ctypes.CDLL(str(lib))
-    return libs
-
-
-def variant_source(base: str, edits: List[Tuple[str, str]]) -> str:
-    for old, new in edits:
-        if old not in base:
-            raise ValueError(f"variant edit {old!r} matches nothing")
-        base = base.replace(old, new)
-    return base
 
 
 def operands(P: int, n: int, seed: int = 0):
@@ -120,21 +88,19 @@ def main(argv=None) -> int:
         formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--variants", nargs="*", default=list(VARIANTS),
                    choices=list(VARIANTS))
-    p.add_argument("--source", nargs="*", default=[], metavar="NAME=PATH",
-                   help="another ppo_grads.cu with the same C interface")
+    p.add_argument("--source", nargs="*", default=[], metavar="NAME=DIR",
+                   help="another csrc/ directory whose ppo_grads.cu has the "
+                        "same C interface")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("grads_ab: CUDA is not available", file=sys.stderr)
         return 1
-    base = (_cuda.CSRC / "ppo_grads.cu").read_text()
-    sources = {"kernel": base}
-    sources.update({v: variant_source(base, VARIANTS[v])
-                    for v in args.variants})
+    others = {}
     for spec in args.source:
         name, path = spec.split("=", 1)
-        with open(path) as f:
-            sources[name] = f.read()
-    libs = build(sources)
+        others[name] = Path(path).resolve()
+    libs = build("ppo_grads.cu", source_dirs(
+        "grads", FILES, VARIANTS, args.variants, others), "grads")
     ops = {shape: operands(*pn) for shape, pn in SHAPES.items()}
     order = list(libs) + list(libs)[::-1]
     ms: Dict[str, Dict[str, List[float]]] = {name: {} for name in libs}
@@ -146,10 +112,14 @@ def main(argv=None) -> int:
                     ms[name].setdefault(key, []).append(time_ms(
                         lambda: ppo_grads._grads_cuda(*args_, bf16=bf16,
                                                       lib=libs[name])))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"device": smi, "ms": ms}))
+    census = {}
+    for name, lib in libs.items():
+        listing = _cuda.sass_listing(Path(lib._name))
+        census[name] = {
+            k: dict(Counter(op for _, op, _ in v))
+            for k, v in listing.items() if "grad_partials_" in k}
+    print(json.dumps({"device": smi("name,power.limit"), "ms": ms,
+                      "census": census}))
     return 0
 
 

@@ -76,6 +76,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Dict[str, object]]:
         if proc.returncode != 0:
             failed.append(f"nvcc {n}.cu exited {proc.returncode}:\n{out}")
             continue
+        lib_path(n).with_suffix(".log").write_text(out)
         os.replace(tmp, lib_path(n))
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -90,6 +91,33 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+_PTXAS_FN = re.compile(r"Function properties for (\S+)")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+
+
+def ptxas_frames(log: str) -> Dict[str, Tuple[int, int, int]]:
+    """`nvcc -Xptxas -v` output -> {mangled function name: (stack frame
+    bytes, spill store bytes, spill load bytes)} a thread."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_FN.search(line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = _PTXAS_FRAME.search(line)
+        if m and cur:
+            out[cur] = tuple(int(v) for v in m.groups())
+            cur = None
+    return out
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the package's build of csrc/<name>.cu,
+    written beside its library when it was built."""
+    return lib_path(name).with_suffix(".log").read_text()
 
 
 _SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s*(.*)$")

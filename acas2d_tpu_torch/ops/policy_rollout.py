@@ -17,13 +17,16 @@ The wrapper launches the CUDA kernel (`csrc/policy_rollout.cu`) for CUDA
 tensors and runs the plain version (`_rollout_plain`, the same per-step
 arithmetic in torch over the batch) for CPU tensors.  There is no fallback
 between the two.  `fused_policy_rollout_members.launches` counts the
-kernel's launches, solo or member.
+kernel's launches, solo or member.  The kernel's launch shape (env rows a
+warp, tiles a block) comes from `launch_shape`; it changes no output bit.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import re
+from pathlib import Path
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -153,10 +156,43 @@ def _rollout_plain(c: Dict[str, float], max_steps: int, st: torch.Tensor,
     return st_out, steps, obs, obs_buf, fbuf, ibuf
 
 
+# csrc/policy_rollout.cu: a tile is 16 * MT envs of one member (MT m16 row
+# tiles, 1 or 2) on WARPS_A_TILE[MT] warps, a block W tiles of at most
+# MAX_WARPS warps in all; its split weights take the same shared memory at
+# any W, which holds an SM to 2 blocks
+WARPS_A_TILE = {1: 4, 2: 2}
+MAX_WARPS = 16
+
+
+def launch_shape(P: int, B: int, sms: int) -> Tuple[int, int]:
+    """(MT, W) for P members of B envs on a card of `sms` SMs.  Tiles of
+    32 rows (MT = 2, a warp a tower) share each weight load between 32
+    rows, once there are rows enough to give every SM two such tiles
+    (P * ceil(B / 32) >= 2 * sms); else tiles of 16 (MT = 1, two warps a
+    tower), which spread the rows over four times the warps and the SMs.
+    W is the largest power of two that keeps a block within MAX_WARPS and
+    a member's tiles and still leaves a block for every SM
+    (P * ceil(tiles / W) >= sms): at B = 2048, P = 1, (1, 1), 128 blocks of
+    4 warps; at P = 32, B = 1024, (2, 4), 256 blocks of 8 warps, 2 an SM."""
+    mt = 2 if P * -(-B // 32) >= 2 * sms else 1
+    tiles = -(-B // (16 * mt))
+    w = 1
+    while (2 * w <= min(MAX_WARPS // WARPS_A_TILE[mt], tiles)
+           and P * -(-tiles // (2 * w)) >= sms):
+        w *= 2
+    return mt, w
+
+
 def _rollout_cuda(c: Dict[str, float], max_steps: int, st: torch.Tensor,
                   steps: torch.Tensor, obs: torch.Tensor,
-                  params: torch.Tensor, seed: int, step_offset: int, K: int):
-    """Launch csrc/policy_rollout.cu; same operands/outputs as _rollout_plain."""
+                  params: torch.Tensor, seed: int, step_offset: int, K: int,
+                  lib: Optional[ctypes.CDLL] = None,
+                  shape: Optional[Tuple[int, ...]] = None):
+    """Launch csrc/policy_rollout.cu; same operands/outputs as
+    _rollout_plain.  `lib`: another build of a source with the same C
+    interface (the A/B tool's); `shape`: the launch-shape arguments of its
+    entry point, (MT, W), by default `launch_shape` on this card's SMs (an
+    entry point without them takes ())."""
     P, PB = params.shape[0], st.shape[1]
     _cuda.require(params, "params", torch.float32, (P, N_PARAMS))
     _cuda.require(st, "state", torch.float32, (8, PB))
@@ -164,10 +200,14 @@ def _rollout_cuda(c: Dict[str, float], max_steps: int, st: torch.Tensor,
         raise ValueError(f"{PB} envs do not split over {P} members")
     _cuda.require(steps, "steps", torch.int32, (PB,))
     _cuda.require(obs, "obs", torch.float32, (PB, 8))
-    lib = _cuda.load("policy_rollout")
+    lib = lib or _cuda.load("policy_rollout")
+    if shape is None:
+        shape = launch_shape(P, PB // P, torch.cuda.get_device_properties(
+            st.device).multi_processor_count)
     fn = lib.acas_policy_rollout
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.POINTER(_RolloutConsts)] + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.POINTER(_RolloutConsts)]
+                   + [ctypes.c_int] * (5 + len(shape))
                    + [ctypes.c_void_p] * 11)
     dev = st.device
     st_out = torch.empty(9, PB, dtype=torch.float32, device=dev)
@@ -180,13 +220,59 @@ def _rollout_cuda(c: Dict[str, float], max_steps: int, st: torch.Tensor,
     # the kernel takes the seed's int32 bit pattern
     seed32 = ((int(seed) + (1 << 31)) % (1 << 32)) - (1 << 31)
     rc = fn(ctypes.byref(consts), P, PB // P, K, seed32, int(step_offset),
-            _cuda.ptr(params), _cuda.ptr(st), _cuda.ptr(steps),
+            *shape, _cuda.ptr(params), _cuda.ptr(st), _cuda.ptr(steps),
             _cuda.ptr(obs), _cuda.ptr(st_out), _cuda.ptr(steps_out),
             _cuda.ptr(obs_out), _cuda.ptr(obs_buf), _cuda.ptr(fbuf),
             _cuda.ptr(ibuf), _cuda.stream_of(st))
     _cuda.check(rc, lib, "policy_rollout launch")
     fused_policy_rollout_members.launches += 1
     return st_out, steps_out, obs_out, obs_buf, fbuf, ibuf
+
+
+def kernel_attrs(mt: int, w: int, lib: Optional[ctypes.CDLL] = None
+                 ) -> Tuple[int, int, int, int]:
+    """The kernel at launch shape (mt, w) as built for this card:
+    (registers a thread, local memory bytes a thread, dynamic shared memory
+    bytes a block, resident blocks an SM)."""
+    lib = lib or _cuda.load("policy_rollout")
+    out = (ctypes.c_int * 4)()
+    lib.acas_policy_rollout_attrs.restype = ctypes.c_int
+    lib.acas_policy_rollout_attrs.argtypes = [ctypes.c_int, ctypes.c_int,
+                                              ctypes.POINTER(ctypes.c_int)]
+    _cuda.check(lib.acas_policy_rollout_attrs(mt, w, out), lib,
+                "policy_rollout attrs")
+    return tuple(out)
+
+
+# SASS opcodes counted by `sass_census` (modifiers dropped): tensor-core
+# products, the float32 pipe, shared memory, the special-function unit,
+# shuffles, barriers, local memory
+SASS_KINDS = ("HMMA", "FFMA", "FADD", "FMUL", "LDS", "STS", "MUFU", "SHFL",
+              "BAR", "LDL", "STL")
+
+
+def sass_census(lib_file: Optional[Path] = None
+                ) -> Dict[int, Dict[str, int]]:
+    """`cuobjdump -sass` of a build of csrc/policy_rollout.cu (the
+    package's, else `lib_file`): for the kernel of each MT (0 for a kernel
+    that is no template of MT), its instructions by SASS_KINDS, "all", and
+    each HMMA opcode with its modifiers (e.g. `HMMA.1688.F32.TF32`)."""
+    out = {}
+    listing = _cuda.sass_listing(lib_file or _cuda.lib_path("policy_rollout"))
+    for name, instrs in listing.items():
+        if "policy_rollout_kernel" not in name:
+            continue
+        mt = re.search(r"policy_rollout_kernelILi(\d+)E", name)
+        c = dict.fromkeys(SASS_KINDS, 0)
+        for _, op, _ in instrs:
+            kind = op.split(".")[0]
+            if kind in c:
+                c[kind] += 1
+            if kind == "HMMA":
+                c[op] = c.get(op, 0) + 1
+        c["all"] = len(instrs)
+        out[int(mt.group(1)) if mt else 0] = c
+    return out
 
 
 def fused_policy_rollout_members(state: Dict[str, torch.Tensor],

@@ -10,12 +10,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      HMMAs of their type (TF32 for f32, BF16 for bf16); the registers,
      local memory and blocks an SM of the env rollout's four
      instantiations, and their instructions by kind, in all and in the
-     T-step loop's body;
+     T-step loop's body; the policy rollout's registers, stack frame,
+     spills (which must be 0), dynamic shared memory and blocks an SM at
+     the main paths' launch shapes, and its instructions by kind, whose
+     products must be TF32 HMMAs and no other;
   2. the rollout kernel against its plain PyTorch version, same seed,
      weights and state: the public wrapper on tensors on the card against
      the same call on copies on the CPU.  Solo (B = 2048 envs, K = 16) and
      member grid (P = 32 members x B = 1024 envs, K = 16, the population
-     pipeline's launch);
+     pipeline's launch); beside the tolerance, the bound on the values' and
+     actions' errors that a build with 1xTF32 products fails;
   3. the PPO-gradient kernel against its plain version the same way, solo
      (N = 65,536 rows) and member-batched (P = 32 x N = 32,768), with the
      `tpu` preset's loss settings and again with ent_coef 0.01; then two
@@ -81,6 +85,7 @@ import time
 import numpy as np
 import torch
 
+from acas2d_tpu_torch import policy_ab
 from acas2d_tpu_torch.config import DEFAULT_PARAMS
 from acas2d_tpu_torch.envs import vector
 from acas2d_tpu_torch.models.actor_critic import (ActorCritic, N_PARAMS,
@@ -125,6 +130,10 @@ FLAGSHIP_RECORD = {"mean_reward": 1252.72, "std_reward": 72.04, "goals": 100}
 #  libm; over 16 closed-loop steps float32 positions (~1e3 px) drift by a
 #  few ulps.
 ROLLOUT_RTOL, ROLLOUT_ATOL = 1e-4, 1e-3
+#  rollout products: the kernel multiplies on the TF32 tensor cores as
+#  3xTF32, which the tolerance above cannot tell from 1xTF32 (11 bits of
+#  each operand); `policy_ab.separation_bounds()` can, from the parent
+#  kernel's own errors on the card (the reason is stated there).
 #  gradients: 32,768- or 65,536-row float32 sums in another order; error
 #  relative to each parameter block's largest gradient.
 GRAD_REL_TOL = 1e-4
@@ -225,6 +234,7 @@ def phase_build():
               f"{per_sm} blocks ({per_sm * 8} warps) an SM")
     sass_census()
     env_census()
+    rollout_census()
 
 
 def sass_census():
@@ -262,25 +272,38 @@ def env_census():
                   + ", ".join(f"{k} {v}" for k, v in c[part].items()))
 
 
-# ------------------------------------------------------------------ phase 2
+def rollout_census():
+    """The policy rollout as built, at the launch shape (MT, W) of each
+    main path: registers, local memory, dynamic shared memory and blocks an
+    SM; per MT its stack frame and spills (ptxas), which must be none, and
+    its SASS by kind, whose products must be TF32 HMMAs and no other."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    frames = _cuda.ptxas_frames(_cuda.build_log("policy_rollout"))
+    census = policy_rollout.sass_census()
+    for tag, (P, B) in policy_ab.SHAPES.items():
+        mt, w = policy_rollout.launch_shape(P, B, sms)
+        regs, local, smem, per_sm = policy_rollout.kernel_attrs(mt, w)
+        tiles = -(-B // (16 * mt))
+        warps = policy_rollout.WARPS_A_TILE[mt] * w
+        print(f"[build] policy_rollout {tag} (P={P}, B={B}): MT={mt}, W={w}, "
+              f"{P * -(-tiles // w)} blocks of {warps} warps on {sms} SMs; "
+              f"{regs} registers, {local} bytes of local memory a thread, "
+              f"{smem} bytes of dynamic shared memory a block, {per_sm} "
+              f"blocks an SM")
+    for mt, got in sorted(census.items()):
+        frame = next(v for k, v in frames.items()
+                     if f"policy_rollout_kernelILi{mt}E" in k)
+        hmma = {k: v for k, v in got.items() if k.startswith("HMMA.")}
+        print(f"[build] policy_rollout MT={mt}: stack frame {frame[0]} "
+              f"bytes, spill stores {frame[1]}, spill loads {frame[2]}; "
+              f"SASS (cuobjdump -sass): {got['all']} instructions; {hmma}; "
+              + ", ".join(f"{k} {got[k]}" for k in policy_rollout.SASS_KINDS))
+        check(frame[1] == frame[2] == 0, f"policy_rollout MT={mt} spills")
+        check(hmma and all(".TF32" in k for k in hmma),
+              f"policy_rollout MT={mt} runs no TF32 HMMA, or another kind")
 
-def rollout_inputs(dev, P, B):
-    """The kernel's operands for P members of B envs: each member its own
-    weights (sigma ~0.6, so actions vary and clip), episodes part-way
-    through, so that timeouts and respawns occur in K steps."""
-    gen = torch.Generator().manual_seed(1)
-    params = torch.stack([flatten(ActorCritic(generator=gen))
-                          for _ in range(P)])
-    params[:, -1] = -0.5
-    es, obs = vector.reset_batch(P * B, DEFAULT_PARAMS, gen, torch.float32,
-                                 "cpu")
-    steps = torch.randint(1, DEFAULT_PARAMS.max_steps + 1, (P * B,),
-                          generator=gen)
-    st = torch.stack([es.px, es.py, es.ppsi, es.tx[:, 0], es.ty[:, 0],
-                      es.tv[:, 0], es.tpsi[:, 0], es.total_reward])
-    return (sm.kernel_constants(DEFAULT_PARAMS), DEFAULT_PARAMS.max_steps,
-            st.to(dev).contiguous(), steps.to(dev, torch.int32),
-            obs.to(dev).contiguous(), params.to(dev), 12345, 32, K)
+
+# ------------------------------------------------------------------ phase 2
 
 
 def compare(tag, got, want, rtol, atol):
@@ -314,7 +337,7 @@ def phase_rollout(dev, P, B):
     on copies on the CPU (the plain version): the solo wrapper at P = 1,
     the member wrapper otherwise.  This also checks the wrappers' state
     stacking, casts and the split of their outputs."""
-    args = rollout_inputs(dev, P, B)
+    args = policy_ab.operands(dev, P, B)
     _, _, st, steps, obs, params, seed, offset, k = args
     state = {key: v.view(P, B) for key, v in
              zip(policy_rollout.STATE_KEYS, st.unbind(0))}
@@ -340,7 +363,14 @@ def phase_rollout(dev, P, B):
     dones = int(want[1]["dones"].gt(0).sum())
     print(f"[{tag}] P={P} B={B} K={k}: {dones} episode ends in the launch")
     check(dones > 0, "the comparison should exercise respawns")
-    return args, max_err
+    bounds = policy_ab.separation_bounds()
+    for name, (m, a, ok) in policy_ab.separating(got[1], want[1]).items():
+        pm, pa = policy_ab.PARENT_ERR[name]
+        print(f"[{tag}] {name}: largest error {m:.3e}, mean {a:.3e}; bounds "
+              f"{bounds[name][0]:.3e}, {bounds[name][1]:.3e} (the parent "
+              f"kernel's {pm:.3e}, {pa:.3e}; a 1xTF32 build fails them)")
+        check(ok, f"{tag} {name}: errors above the 3xTF32 bounds")
+    return args, max_err, dones
 
 
 # ------------------------------------------------------------------ phase 3
@@ -914,12 +944,25 @@ def phase_bf16_training():
 
 # ----------------------------------------------------------------- phase 10
 
-MLP_FLOP = 2 * 2 * (HIDDEN * OBS_DIM + HIDDEN * HIDDEN + HIDDEN)  # env-step
+# Operations of one env-step of the policy rollout, by unit, beyond the env
+# rollout's with obs and random actions (env_rollout_ops, below): the two
+# towers' layer-1 and layer-2 products, MLP_PRODUCT_FLOP, on the TF32
+# tensor cores as 3xTF32 (three products each) or float32 on the CUDA
+# cores, the faster route bounding; the 256 tanhf, each charged one
+# special-function op (one MUFU.TANH is the least the card could do for
+# one; the IEEE tanhf issues two MUFU ops and ~15 others); the biases and
+# heads' 514 float32 ops; and the Gaussian sample's log, root, cosine and
+# divide (special) and 11 float32 ops more than a random action's.
+MLP_PRODUCT_FLOP = 2 * 2 * (HIDDEN * OBS_DIM + HIDDEN * HIDDEN)
+POLICY_STEP_OPS = {"f32": 2 * (2 * HIDDEN + 2 * HIDDEN + 1) + 11,
+                   "sfu": 2 * 2 * HIDDEN + 4}
 # per row: forward 2 x 4,672 MAC; backward per tower 8,832 MAC
 GRAD_FLOP = 2 * (2 * 4672 + 2 * 8832)
 
 
 def time_rollout(args):
+    """args: (the kernel's operands, the episode ends of their launch)."""
+    args, episodes = args
     P, PB = args[5].shape[0], args[2].shape[1]
     ms = cuda_time_ms(lambda: policy_rollout._rollout_cuda(*args), 50)
     plain_ms = cuda_time_ms(lambda: policy_rollout._rollout_plain(*args), 5,
@@ -927,7 +970,17 @@ def time_rollout(args):
     n_bytes = 4 * (8 * PB + PB + 8 * PB + P * N_PARAMS              # inputs
                    + 9 * PB + PB + 8 * PB + K * PB * 8 + 6 * K * PB
                    + 2 * K * PB)
-    return ms, plain_ms, bound_ops(n_bytes, {"f32": K * PB * MLP_FLOP})
+    ops = env_rollout_ops(PB, K, episodes, False, True)
+    for unit, n in POLICY_STEP_OPS.items():
+        ops[unit] += n * K * PB
+    products = K * PB * MLP_PRODUCT_FLOP
+    cores = bound_ops(n_bytes, {**ops, "f32": ops["f32"] + products})
+    tensor = bound_ops(n_bytes, {**ops, "tf32": 3 * products})
+    print(f"[time] rollout bound at P={P} B={PB // P} K={K}: {cores[0]:.4f} "
+          f"ms with the products float32 on the CUDA cores, {tensor[0]:.4f} "
+          f"ms 3xTF32 on the tensor cores (special-function ops alone "
+          f"{ops['sfu'] / PEAK_OPS_PER_S['sfu'] * 1e3:.4f} ms)")
+    return ms, plain_ms, min(cores, tensor)
 
 
 def time_grads(args):
@@ -1136,12 +1189,14 @@ def main() -> int:
     phase_eval()
     cu, pt = "acas2d_tpu_torch/csrc/", "acas2d_tpu/ops/"
     rows = [
-        ("policy_rollout", time_rollout, roll["solo"][0], roll["solo"][1],
+        ("policy_rollout", time_rollout,
+         (roll["solo"][0], roll["solo"][2]), roll["solo"][1],
          solo_launches["policy_rollout"], cu + "policy_rollout.cu",
          pt + "pallas_policy.py:67"),
-        ("policy_rollout_members", time_rollout, roll["members"][0],
-         roll["members"][1], pop_launches["policy_rollout"],
-         cu + "policy_rollout.cu", pt + "pallas_policy.py:67"),
+        ("policy_rollout_members", time_rollout,
+         (roll["members"][0], roll["members"][2]), roll["members"][1],
+         pop_launches["policy_rollout"], cu + "policy_rollout.cu",
+         pt + "pallas_policy.py:67"),
         ("ppo_grads", time_grads, grads["solo"][0], grads["solo"][1],
          solo_launches["ppo_grads"], cu + "ppo_grads.cu",
          pt + "pallas_update.py:60"),

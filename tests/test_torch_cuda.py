@@ -19,6 +19,7 @@ use).  Tolerances are chip_smoke.py's, for the reasons stated there.
 import pytest
 import torch
 
+from acas2d_tpu_torch import ab, policy_ab
 from acas2d_tpu_torch.config import DEFAULT_PARAMS
 from acas2d_tpu_torch.envs import vector
 from acas2d_tpu_torch.models.actor_critic import ActorCritic, flatten
@@ -85,7 +86,7 @@ def _assert_rollout_close(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,K", [(2048, 16), (1000, 3)])
+@pytest.mark.parametrize("B,K", [(2048, 16), (1000, 3), (2040, 4)])
 def test_rollout_kernel_matches_plain(cuda, B, K):
     args = _rollout_args(B, K, cuda)
     n0 = policy_rollout.fused_policy_rollout_members.launches
@@ -97,7 +98,7 @@ def test_rollout_kernel_matches_plain(cuda, B, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,B,K", [(4, 1024, 8), (3, 200, 2)])
+@pytest.mark.parametrize("P,B,K", [(4, 1024, 8), (3, 200, 2), (32, 1000, 2)])
 def test_member_rollout_kernel_matches_plain(cuda, P, B, K):
     args = _rollout_args(B, K, cuda, P=P)
     n0 = policy_rollout.fused_policy_rollout_members.launches
@@ -132,6 +133,84 @@ def test_member_rollout_p1_and_member0_equal_the_solo_launch(cuda):
     for k, v in solo[0].items():
         assert torch.equal(v, p1[0][k][0]) and torch.equal(v, two[0][k][0]), k
     assert not torch.equal(two[1]["actions"][:, 0], two[1]["actions"][:, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,B", [(1, 1000), (3, 200), (32, 1000)])
+def test_rollout_launch_shapes_agree_bit_for_bit(cuda, P, B):
+    """Every row's arithmetic is independent of its tile: any launch shape
+    (row tiles a warp, tiles a block) gives the same bits, rows past B in
+    a last partial tile included."""
+    args = _rollout_args(B, 3, cuda, P=P)
+    want = policy_rollout._rollout_cuda(*args)
+    for shape in [(1, 1), (1, 2), (1, 4), (2, 1), (2, 4), (2, 8)]:
+        got = policy_rollout._rollout_cuda(*args, shape=shape)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mt", [1, 2])
+def test_rollout_kernel_runs_tf32_hmmas_without_spills(cuda, mt):
+    """Both towers' products are TF32 tensor-core HMMAs and nothing else;
+    no register spills (the stack frame is the IEEE sine's slow path)."""
+    census = policy_rollout.sass_census()[mt]
+    hmma = [op for op in census if op.startswith("HMMA.")]
+    assert hmma and all(".TF32" in op for op in hmma), census
+    frames = _cuda.ptxas_frames(_cuda.build_log("policy_rollout"))
+    frame = next(v for k, v in frames.items()
+                 if f"policy_rollout_kernelILi{mt}E" in k)
+    assert frame[1] == frame[2] == 0, frame
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,B,shape,blocks", [(1, 2048, (1, 1), 128),
+                                              (32, 1024, (2, 4), 256)],
+                         ids=["solo", "members"])
+def test_rollout_launch_shape_at_the_main_path_shapes(cuda, P, B, shape,
+                                                      blocks):
+    """The solo launch spreads over 128 SMs (blocks of 4 warps); the
+    member launch keeps two blocks of 8 warps on an SM."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    mt, w = policy_rollout.launch_shape(P, B, sms)
+    assert (mt, w) == shape
+    tiles = -(-B // (16 * mt))
+    assert P * -(-tiles // w) == blocks
+    _, _, smem, per_sm = policy_rollout.kernel_attrs(mt, w)
+    assert per_sm >= (2 if P > 1 else 1), (smem, per_sm)
+
+
+@pytest.mark.cuda
+def test_rollout_refused_launch_raises(cuda):
+    """A launch the card refuses (blocks of 64 warps, over the card's
+    limit) raises and counts no launch."""
+    args = _rollout_args(256, 2, cuda)
+    n0 = policy_rollout.fused_policy_rollout_members.launches
+    with pytest.raises(RuntimeError, match="policy_rollout launch"):
+        policy_rollout._rollout_cuda(*args, shape=(1, 16))
+    assert policy_rollout.fused_policy_rollout_members.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,B", [(1, 2048), (32, 1024)],
+                         ids=["solo", "members"])
+def test_rollout_separating_check_fails_a_1xtf32_build(cuda, P, B):
+    """chip_smoke.py's bound on the values' and actions' errors holds the
+    kernel and fails a build whose products are 1xTF32."""
+    dirs = ab.source_dirs("policy", policy_ab.FILES, policy_ab.VARIANTS,
+                          ["onex_tf32"], {})
+    libs = ab.build("policy_rollout.cu", {"onex_tf32": dirs["onex_tf32"]},
+                    "policy")
+    args = policy_ab.operands(cuda, P, B)
+    want = policy_ab.named(policy_rollout._rollout_plain(
+        *(a.cpu() if torch.is_tensor(a) else a for a in args)))
+    got = policy_ab.named(policy_rollout._rollout_cuda(*args))
+    onex = policy_ab.named(policy_rollout._rollout_cuda(
+        *args, lib=libs["onex_tf32"]))
+    torch.cuda.synchronize()
+    assert all(ok for _, _, ok in policy_ab.separating(got, want).values())
+    assert not all(ok for _, _, ok in policy_ab.separating(onex,
+                                                           want).values())
 
 
 @pytest.mark.cuda
