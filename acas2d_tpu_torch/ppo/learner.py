@@ -39,7 +39,7 @@ from acas2d_tpu_torch import resolve_device
 from acas2d_tpu_torch.config import EnvParams
 from acas2d_tpu_torch.envs import core, vector
 from acas2d_tpu_torch.models.actor_critic import (ActorCritic, apply_flat,
-                                                  flatten)
+                                                  flatten, members_forward)
 from acas2d_tpu_torch.oracle import MersenneSpawner
 from acas2d_tpu_torch.ops.policy_rollout import fused_policy_rollout
 from acas2d_tpu_torch.ops.ppo_grads import ppo_minibatch_grads_members
@@ -80,6 +80,12 @@ class TrainState:
 
     def replace(self, **changes) -> "TrainState":
         return dataclasses.replace(self, **changes)
+
+    @property
+    def generators(self) -> List[torch.Generator]:
+        """The generator as a list, as a `PopulationState` holds one per
+        member."""
+        return [self.generator]
 
 
 # ---------------------------------------------------------------- optimizer
@@ -139,6 +145,81 @@ def init_train_state(cfg: PPOConfig, env_params: EnvParams, device=None,
                                         torch.float32, dev)
     return TrainState(params=params, opt_state=Optimizer(cfg).init(params),
                       env_state=env_state, obs=obs, generator=gen)
+
+
+# ---------------------------------------------------------------- checkpoints
+
+def state_to_dict(state) -> Dict:
+    """A `TrainState` or a `population.PopulationState` as a checkpoint:
+    a plain dict of CPU tensors, ints and strings, so that
+    `torch.load(weights_only=True)` reads it.  It holds everything that
+    makes a resumed run continue bit for bit: params, the Adam moments and
+    count, every `EnvState` field and obs, the completed iteration, the
+    state of each generator, and the sizes that fix the tensors' shapes."""
+    return {
+        "kind": "population" if state.params.dim() == 2 else "solo",
+        "shapes": _state_shapes(state),
+        "iteration": int(state.iteration),
+        "params": state.params.detach().cpu(),
+        "adam": {"mu": state.opt_state.mu.cpu(),
+                 "nu": state.opt_state.nu.cpu(),
+                 "count": int(state.opt_state.count)},
+        "env_state": {f.name: getattr(state.env_state, f.name).cpu()
+                      for f in dataclasses.fields(EnvState)},
+        "obs": state.obs.cpu(),
+        "generators": [g.get_state() for g in state.generators],
+    }
+
+
+def state_from_dict(raw: Dict, target):
+    """The state of checkpoint `raw` on the device of `target`, a fresh
+    state of the same kind and config, as JAX restores into a target.
+    Refuses a checkpoint whose kind, sizes or tensor shapes differ from
+    the target's."""
+    want = _state_shapes(target)
+    kind = "population" if want["population"] else "solo"
+    if raw["kind"] != kind:
+        raise ValueError(f"checkpoint holds a {raw['kind']} state, the run "
+                         f"is {kind}")
+    bad = {k: (raw["shapes"].get(k), v) for k, v in want.items()
+           if raw["shapes"].get(k) != v}
+    if bad:
+        raise ValueError("checkpoint shapes differ from the config's "
+                         "(checkpoint, config): " + ", ".join(
+                             f"{k} {a} vs {b}" for k, (a, b) in bad.items()))
+    dev = target.params.device
+
+    def load(t, like):
+        if t.shape != like.shape or t.dtype != like.dtype:
+            raise ValueError(f"checkpoint tensor {tuple(t.shape)} {t.dtype} "
+                             f"vs {tuple(like.shape)} {like.dtype}")
+        return t.to(dev)
+
+    gens = [torch.Generator() for _ in raw["generators"]]
+    for g, s in zip(gens, raw["generators"]):
+        g.set_state(s)
+    return target.replace(
+        params=load(raw["params"], target.params),
+        opt_state=AdamState(mu=load(raw["adam"]["mu"], target.opt_state.mu),
+                            nu=load(raw["adam"]["nu"], target.opt_state.nu),
+                            count=int(raw["adam"]["count"])),
+        env_state=EnvState(**{
+            f.name: load(raw["env_state"][f.name],
+                         getattr(target.env_state, f.name))
+            for f in dataclasses.fields(EnvState)}),
+        obs=load(raw["obs"], target.obs),
+        iteration=int(raw["iteration"]),
+        **({"generator": gens[0]} if isinstance(target, TrainState)
+           else {"generators": gens}))
+
+
+def _state_shapes(state) -> Dict[str, int]:
+    """The sizes that fix a state's tensor shapes (0 members = solo)."""
+    return {"population": (state.params.shape[0]
+                           if state.params.dim() == 2 else 0),
+            "n_envs": state.obs.shape[-2], "obs_dim": state.obs.shape[-1],
+            "n_params": state.params.shape[-1],
+            "max_traffic": state.env_state.tx.shape[-1]}
 
 
 # ---------------------------------------------------------------- rollout
@@ -329,33 +410,18 @@ def make_train_step(cfg: PPOConfig, env_params: EnvParams,
 
 # -------------------------------------------------------------- evaluation
 
-@torch.no_grad()
-def greedy_episodes(model: ActorCritic, params: torch.Tensor,
-                    env_state: EnvState, obs: torch.Tensor,
-                    env_params: EnvParams) -> Dict[str, torch.Tensor]:
-    """Step every env greedily (clipped mean action) for up to max_steps and
-    record its FIRST episode: per-env return, length and outcome.  The
-    policy runs in its own dtype (float32) on the env's observations; the env
-    steps in its dtype (float64 for the exact protocol), as eval.py does."""
-    return greedy_rollout(
-        lambda o: apply_flat(model, params, o.to(params.dtype))[0][:, 0],
-        env_state, obs, env_params)
+GREEDY_CHUNK = 64      # steps between the host's early-exit checks
 
 
-@torch.no_grad()
-def greedy_rollout(policy_mean: Callable[[torch.Tensor], torch.Tensor],
-                   env_state: EnvState, obs: torch.Tensor,
-                   env_params: EnvParams) -> Dict[str, torch.Tensor]:
-    """`greedy_episodes` for any policy: `policy_mean(obs (n, 8))` gives
-    the (n,) action means (a population's members, each on its own envs)."""
-    n = obs.shape[0]
+def _greedy_steps(policy_mean: Callable[[torch.Tensor], torch.Tensor],
+                  carry: Tuple, env_params: EnvParams, n_steps: int
+                  ) -> Tuple:
+    """`n_steps` greedy steps of carry = (env_state, obs, ret, length,
+    outcome, done_seen): every env takes its clipped mean action, and the
+    first episode of each is recorded."""
+    env_state, obs, ret, length, outcome, done_seen = carry
     dtype = env_state.px.dtype
-    dev = obs.device
-    ret = torch.zeros(n, dtype=dtype, device=dev)
-    length = torch.zeros(n, dtype=torch.int32, device=dev)
-    outcome = torch.zeros(n, dtype=torch.int32, device=dev)
-    done_seen = torch.zeros(n, dtype=torch.bool, device=dev)
-    for t in range(env_params.max_steps):
+    for _ in range(n_steps):
         a = torch.clamp(policy_mean(obs), -1.0, 1.0).to(dtype)
         env_state, out = vector.step_batch(env_state, a, env_params)
         active = ~done_seen
@@ -364,11 +430,151 @@ def greedy_rollout(policy_mean: Callable[[torch.Tensor], torch.Tensor],
         outcome = torch.where(active & out.done, out.outcome, outcome)
         done_seen = done_seen | out.done
         obs = out.obs
-        # later steps change nothing once every env has ended
-        if t % 64 == 63 and bool(done_seen.all()):
+    return env_state, obs, ret, length, outcome, done_seen
+
+
+def _greedy_start(env_state: EnvState, obs: torch.Tensor) -> Tuple:
+    n = obs.shape[0]
+    dev = obs.device
+    return (env_state, obs,
+            torch.zeros(n, dtype=env_state.px.dtype, device=dev),
+            torch.zeros(n, dtype=torch.int32, device=dev),
+            torch.zeros(n, dtype=torch.int32, device=dev),
+            torch.zeros(n, dtype=torch.bool, device=dev))
+
+
+def _greedy_result(carry: Tuple) -> Dict[str, torch.Tensor]:
+    return dict(zip(("return", "length", "outcome", "done"), carry[2:]))
+
+
+@torch.no_grad()
+def greedy_rollout(policy_mean: Callable[[torch.Tensor], torch.Tensor],
+                   env_state: EnvState, obs: torch.Tensor,
+                   env_params: EnvParams) -> Dict[str, torch.Tensor]:
+    """Step every env greedily (clipped mean action) for up to max_steps and
+    record its FIRST episode: per-env return, length and outcome, eagerly.
+    `policy_mean(obs (n, 8))` gives the (n,) action means; the env steps in
+    its own dtype (float64 for the exact protocol).  The host checks after
+    every GREEDY_CHUNK steps whether every env has ended, and stops: later
+    steps change nothing.  `GreedyEval` replays the same chunks as CUDA
+    graphs on the card; this loop is what it runs on the CPU."""
+    carry = _greedy_start(env_state, obs)
+    for start in range(0, env_params.max_steps, GREEDY_CHUNK):
+        carry = _greedy_steps(
+            policy_mean, carry, env_params,
+            min(GREEDY_CHUNK, env_params.max_steps - start))
+        if bool(carry[-1].all()):
             break
-    return {"return": ret, "length": length, "outcome": outcome,
-            "done": done_seen}
+    return _greedy_result(carry)
+
+
+class _ChunkGraphs:
+    """The greedy loop's chunks captured as CUDA graphs for one (envs, env
+    dtype, policy kind, P): a GREEDY_CHUNK-step graph and, when max_steps
+    is not a multiple of it, a graph of the remaining steps.  Both read
+    and update the same static tensors in place (the params and the
+    carry), so replays chain with no copy between them."""
+
+    def __init__(self, policy_mean, params: torch.Tensor,
+                 env_state: EnvState, obs: torch.Tensor,
+                 env_params: EnvParams):
+        self.params = params.clone()
+        self.carry = tuple(_clone(x) for x in _greedy_start(env_state, obs))
+        full, tail = divmod(env_params.max_steps, GREEDY_CHUNK)
+        self.lengths = [GREEDY_CHUNK] * full + ([tail] if tail else [])
+
+        def chunk(n_steps):
+            new = _greedy_steps(lambda o: policy_mean(self.params, o),
+                                self.carry, env_params, n_steps)
+            for dst, src in zip(_leaves(self.carry), _leaves(new)):
+                dst.copy_(src)
+
+        # warm up (cuBLAS handles, workspaces) on the capture stream
+        stream = torch.cuda.Stream(device=obs.device)
+        stream.wait_stream(torch.cuda.current_stream(obs.device))
+        with torch.cuda.stream(stream):
+            chunk(1)
+        torch.cuda.current_stream(obs.device).wait_stream(stream)
+        self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
+        pool = None
+        for n in sorted(set(self.lengths), reverse=True):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=pool, stream=stream):
+                chunk(n)
+            pool = g.pool()
+            self.graphs[n] = g
+
+    def run(self, params: torch.Tensor, env_state: EnvState,
+            obs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        self.params.copy_(params)
+        for dst, src in zip(_leaves(self.carry),
+                            _leaves(_greedy_start(env_state, obs))):
+            dst.copy_(src)
+        for n in self.lengths:
+            self.graphs[n].replay()
+            if bool(self.carry[-1].all()):
+                break
+        return {k: v.clone() for k, v in _greedy_result(self.carry).items()}
+
+
+def _leaves(carry: Tuple) -> List[torch.Tensor]:
+    env_state = carry[0]
+    return ([getattr(env_state, f.name)
+             for f in dataclasses.fields(EnvState)] + list(carry[1:]))
+
+
+def _clone(x):
+    if isinstance(x, EnvState):
+        return EnvState(**{f.name: getattr(x, f.name).clone()
+                           for f in dataclasses.fields(EnvState)})
+    return x.clone()
+
+
+class GreedyEval:
+    """Greedy episodes of one policy kind: `members=False`, params
+    (N_PARAMS,) play every env; `members=True`, params (P, N_PARAMS), and
+    member m plays the m-th of P equal runs of envs (a batched per-member
+    MLP).  The policy runs in its params' dtype (float32) on the env's
+    observations.
+
+    On the CPU it runs `greedy_rollout`.  On a CUDA device each GREEDY_CHUNK
+    steps of that loop (about 440 small launches a step) are captured once
+    per (envs, env dtype, P) as a CUDA graph and replayed, the params and
+    the start state copied into the graph's static inputs first; between
+    replays the host reads only whether every env has ended, as the eager
+    loop does, so the results are the eager loop's bit for bit.  A capture
+    that fails raises; nothing falls back to the eager loop on the card."""
+
+    def __init__(self, members: bool = False, device=None):
+        self.members = members
+        self._model = (None if members
+                       else ActorCritic(device=resolve_device(device)))
+        self._graphs: Dict[Tuple, _ChunkGraphs] = {}
+
+    def policy_mean(self, params: torch.Tensor, obs: torch.Tensor
+                    ) -> torch.Tensor:
+        o = obs.to(params.dtype)
+        if self.members:
+            P = params.shape[0]
+            return members_forward(params, o.view(P, o.shape[0] // P, -1)
+                                   )[0].reshape(-1)
+        return apply_flat(self._model, params, o)[0][:, 0]
+
+    @torch.no_grad()
+    def __call__(self, params: torch.Tensor, env_state: EnvState,
+                 obs: torch.Tensor, env_params: EnvParams
+                 ) -> Dict[str, torch.Tensor]:
+        if obs.device.type != "cuda":
+            return greedy_rollout(lambda o: self.policy_mean(params, o),
+                                  env_state, obs, env_params)
+        key = (tuple(obs.shape), env_state.px.dtype, tuple(params.shape),
+               params.dtype, env_params)
+        graphs = self._graphs.get(key)
+        if graphs is None:
+            graphs = _ChunkGraphs(self.policy_mean, params, env_state, obs,
+                                  env_params)
+            self._graphs[key] = graphs
+        return graphs.run(params, env_state, obs)
 
 
 def eval_metrics(ep: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -391,23 +597,24 @@ def make_eval_fn(cfg: PPOConfig, env_params: EnvParams, dtype=torch.float32,
     generator: eval_fn(params, generator) -> metrics (EvalCallback
     equivalent, training_main.py:31-35)."""
     dev = resolve_device(device)
-    model = ActorCritic(device=dev)
+    greedy = GreedyEval(device=dev)
 
     def eval_fn(params, generator):
         env_state, obs = vector.reset_batch(cfg.eval_episodes, env_params,
                                             generator, dtype, dev)
-        return eval_metrics(greedy_episodes(model, params, env_state, obs,
-                                            env_params))
+        return eval_metrics(greedy(params, env_state, obs, env_params))
 
     return eval_fn
 
 
 def exact_episodes(params: torch.Tensor, env_params: EnvParams,
                    spawner: MersenneSpawner, n_episodes: int,
-                   dtype=torch.float64, device=None
+                   dtype=torch.float64, device=None,
+                   greedy: Optional[GreedyEval] = None
                    ) -> Dict[str, torch.Tensor]:
     """Greedy episodes spawned from the reference's Mersenne stream
-    (oracle.MersenneSpawner + core.reset_from), `n_episodes` draws."""
+    (oracle.MersenneSpawner + core.reset_from), `n_episodes` draws, played
+    by `greedy` (default a new solo `GreedyEval`)."""
     dev = resolve_device(device)
     inits = spawner.spawn_batch(n_episodes)
     env_state, obs = core.reset_from(
@@ -418,8 +625,8 @@ def exact_episodes(params: torch.Tensor, env_params: EnvParams,
         np.stack([i.traffic_psi for i in inits]),
         np.array([i.num_traffic for i in inits]),
         env_params, dtype, dev)
-    return greedy_episodes(ActorCritic(device=dev), params, env_state, obs,
-                           env_params)
+    greedy = greedy if greedy is not None else GreedyEval(device=dev)
+    return greedy(params, env_state, obs, env_params)
 
 
 def make_exact_eval_fn(cfg: PPOConfig, env_params: EnvParams,
@@ -427,13 +634,17 @@ def make_exact_eval_fn(cfg: PPOConfig, env_params: EnvParams,
                        skip_episodes: int = 0) -> Callable:
     """Greedy evaluation whose episodes spawn from ONE continuing Mersenne
     stream (the reference EvalCallback's protocol): eval_fn(params) draws
-    the next cfg.eval_episodes spawns on every call."""
+    the next cfg.eval_episodes spawns on every call.  `skip_episodes`
+    fast-forwards the stream past the episodes an earlier process drew (a
+    resumed run's)."""
     spawner = MersenneSpawner(env_params, seed=cfg.seed,
                               skip_episodes=skip_episodes)
+    greedy = GreedyEval(device=device)
 
     def eval_fn(params, generator=None):
         del generator                    # Mersenne stream, not the generator
         return eval_metrics(exact_episodes(params, env_params, spawner,
-                                           cfg.eval_episodes, dtype, device))
+                                           cfg.eval_episodes, dtype, device,
+                                           greedy))
 
     return eval_fn

@@ -200,20 +200,17 @@ def make_population_eval(cfg: PPOConfig, env_params: EnvParams,
     generator) -> metrics (P,).  The P members play P * cfg.eval_episodes
     fresh spawns drawn from `generator`, member m on its own
     cfg.eval_episodes of them (the JAX package folds the member index into
-    the key), with a batched per-member MLP."""
+    the key), with a batched per-member MLP (`learner.GreedyEval`: replayed
+    CUDA graphs on the card)."""
     dev = resolve_device(device)
     n = cfg.eval_episodes
+    greedy = learner.GreedyEval(members=True, device=dev)
 
     def eval_all(params: torch.Tensor, generator: torch.Generator):
         P = params.shape[0]
         env_state, obs = vector.reset_batch(P * n, env_params, generator,
                                             dtype, dev)
-
-        def policy_mean(o):
-            return members_forward(
-                params, o.to(params.dtype).view(P, n, -1))[0].reshape(-1)
-
-        ep = learner.greedy_rollout(policy_mean, env_state, obs, env_params)
+        ep = greedy(params, env_state, obs, env_params)
         return learner.eval_metrics({k: v.view(P, n) for k, v in ep.items()})
 
     return eval_all

@@ -6,19 +6,20 @@ and population training (`--population P`, `ppo/population.py`), at the
 policy-in-kernel rollout and every minibatch gradient runs the fused
 PPO-gradient kernel (on a CUDA device; the plain PyTorch versions of the
 same arithmetic on the CPU).  It prints one JSON line of metrics per
-iteration on stdout.
+iteration on stdout, and logs, checkpoints and a summary into its run
+directory.
 
     python -m acas2d_tpu_torch.train --preset tpu --total-steps 2621440
     python -m acas2d_tpu_torch.train --preset tpu --device cpu --n-envs 64 \\
         --n-steps 32 --minibatch-size 512 --total-steps 4096
 
 Population training is the shipped pipeline's command
-(`scripts/population_pipeline.sh`, without `--checkpoint-every`):
+(`scripts/population_pipeline.sh`):
 
     python -m acas2d_tpu_torch.train --preset tpu --anneal-lr \\
         --population 32 --fused-rollout --fused-update-packed \\
         --n-envs 1024 --minibatch-size 32768 --total-steps 268435456 \\
-        --eval-episodes 32 --reval-episodes 512 \\
+        --eval-episodes 32 --reval-episodes 512 --checkpoint-every 268435456 \\
         --polish-steps 33554432 --polish-pop 16 --polish-rounds 2
 
 It trains P members (member i as a solo run with seed + i), evaluates
@@ -30,6 +31,23 @@ re-evaluates all of them at the end and writes `selected_best.npz`,
 stage's top snapshots.  `global_step` counts each member's env-steps;
 `steps_per_s` is the whole population's.
 
+Every run keeps a run directory, `<out-dir>/<run-name>/` (JAX's default
+name, `ppo_[popP_]<envs>x<steps>_<total>_s<seed>`):
+
+    checkpoints/<step>/state.pt   every --checkpoint-every steps and at the
+                                  end (or on Ctrl-C); the newest 5 are kept
+    checkpoints/best/             the best in-training eval's state (solo)
+    checkpoints/eval_counts.json  evals done at each checkpointed step
+    train.csv / train.jsonl       one row per iteration
+    eval.csv / eval.jsonl         one row per eval
+    summary.json                  the run's record
+
+`--resume` continues from the latest checkpoint bit for bit (params, Adam
+state, env state, generators and the `--exact-eval` Mersenne stream);
+`python -m acas2d_tpu_torch.eval --run DIR [--best | --step N]` scores a
+checkpoint.  A resume that changes `--total-steps` names the run with
+`--run-name`, since the default name holds the budget.
+
 The fused paths are on by default (`--no-fused-rollout` and
 `--no-fused-update` ask for the unfused ones, which are not ported yet).
 `--fused-update-packed` is the fused update in the port (its parameters
@@ -38,8 +56,8 @@ are always one flat vector in the kernel's layout), and
 bf16.  Options the port does not implement yet are refused with an error,
 so a JAX command line never silently means something else: the unfused
 paths map onto their `PPOConfig` fields, which `learner.check_ported`
-refuses, and flags with no port at all (`--checkpoint-every`, `--resume`)
-are unknown to the parser.
+refuses, and flags with no port at all (`--iters-per-call`, `--profile`,
+`--dtype`, `--platform`, `--compile-cache`) are unknown to the parser.
 """
 
 from __future__ import annotations
@@ -50,7 +68,7 @@ import json
 import os
 import sys
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -59,6 +77,8 @@ from acas2d_tpu_torch import resolve_device
 from acas2d_tpu_torch.config import DEFAULT_PARAMS
 from acas2d_tpu_torch.ppo import learner, population
 from acas2d_tpu_torch.ppo.config import PPOConfig, tpu_default
+from acas2d_tpu_torch.utils.checkpoint import CheckpointManager
+from acas2d_tpu_torch.utils.logging import MetricsLogger
 from acas2d_tpu_torch.utils.params_io import load_flat_params
 
 
@@ -128,18 +148,28 @@ def parse_args(argv=None):
                         "Optimizer, env state and step counter start fresh")
     p.add_argument("--seed", type=int, default=13)
     p.add_argument("--out-dir", default="runs/ppo",
-                   help="population mode: where the run dir goes")
-    p.add_argument("--run-name", default=None)
+                   help="where the run dir goes")
+    p.add_argument("--run-name", default=None,
+                   help="the run dir's name (default ppo_[popP_]<envs>x"
+                        "<steps>_<total>_s<seed>)")
+    p.add_argument("--checkpoint-every", type=int, default=32768,
+                   help="global steps between checkpoints (reference: "
+                        "32768); checkpoints fire between iterations, and "
+                        "once more at the end")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the run dir's latest checkpoint")
     p.add_argument("--eval-every", type=int, default=None)
     p.add_argument("--eval-episodes", type=int, default=None)
     p.add_argument("--exact-eval", action="store_true",
                    help="evaluate on the reference's Mersenne spawn stream "
-                        "(one continuing stream, as eval.py --exact); solo "
-                        "runs only")
+                        "(one continuing stream, as eval.py --exact, which "
+                        "a resume fast-forwards); solo runs only")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    args.argv = sys.argv[1:] if argv is None else list(argv)
+    return args
 
 
 def build_config(args) -> PPOConfig:
@@ -182,9 +212,220 @@ def _init_params(path: str, pop: int) -> torch.Tensor:
     return flat[torch.arange(pop) % stack_n]
 
 
+def run_name_of(args, cfg: PPOConfig) -> str:
+    """The run dir's name: --run-name, else JAX train.py's default."""
+    pop = f"pop{args.population}_" if args.population else ""
+    return args.run_name or (f"ppo_{pop}{cfg.n_envs}x{cfg.n_steps}_"
+                             f"{cfg.total_timesteps}_s{cfg.seed}")
+
+
+def count_prior_evals(run_dir: str, restored_step: int,
+                      cfg: PPOConfig) -> int:
+    """Evals a previous process performed up to `restored_step`, for the
+    --exact-eval resume fast-forward (a copy of JAX train.py's): the count
+    in checkpoints/eval_counts.json at that step; else the DISTINCT
+    global_step values <= restored_step in eval.jsonl (a crash-then-resume
+    cycle logs an eval twice); else the cadence formula."""
+    if restored_step <= 0:
+        return 0
+    counts_path = os.path.join(run_dir, "checkpoints", "eval_counts.json")
+    if os.path.exists(counts_path):
+        try:
+            with open(counts_path) as f:
+                counts = json.load(f)
+            if str(restored_step) in counts:
+                return int(counts[str(restored_step)])
+        except (ValueError, OSError):
+            pass
+    path = os.path.join(run_dir, "eval.jsonl")
+    if os.path.exists(path):
+        steps = set()
+        with open(path) as f:
+            for line in f:
+                try:
+                    row = json.loads(line)
+                except ValueError:
+                    continue
+                if int(row.get("global_step", 0)) <= restored_step:
+                    steps.add(int(row.get("global_step", 0)))
+        return len(steps)
+    # thresholds 0, E, 2E, ... fire once each, the first on iteration 1
+    return restored_step // cfg.eval_every_steps + 1
+
+
+def record_eval_count(run_dir: str, step: int, evals_done: int) -> None:
+    """Persist the evals performed by a checkpointed step, in
+    checkpoints/eval_counts.json (read by count_prior_evals)."""
+    path = os.path.join(run_dir, "checkpoints", "eval_counts.json")
+    counts = {}
+    if os.path.exists(path):
+        try:
+            with open(path) as f:
+                counts = json.load(f)
+        except (ValueError, OSError):
+            counts = {}
+    counts[str(step)] = int(evals_done)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path + ".tmp", "w") as f:
+        json.dump(counts, f)
+    os.replace(path + ".tmp", path)
+
+
+def eval_generator(seed: int, gstep: int) -> torch.Generator:
+    """The generator of the eval at `gstep`: keyed by (seed + 1, gstep), as
+    JAX folds the step into its eval key, so every eval draws fresh
+    episodes and a resumed run draws the same ones."""
+    key = np.random.SeedSequence([seed + 1, gstep]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(key))
+
+
 def _emit(row: Dict, rows: List[Dict]) -> None:
     print(json.dumps(row), flush=True)
     rows.append(row)
+
+
+class _Run:
+    """What the solo and population loops share: the run dir, its
+    checkpoints and loggers, resume, the eval and checkpoint cadences, the
+    iteration loop and summary.json."""
+
+    def __init__(self, args, cfg: PPOConfig, run_dir: str):
+        self.t_main = time.perf_counter()
+        self.args, self.cfg, self.run_dir = args, cfg, run_dir
+        os.makedirs(run_dir, exist_ok=True)
+        self.ckpt = CheckpointManager(os.path.join(run_dir, "checkpoints"))
+        self.logger = MetricsLogger(run_dir, "train")
+        self.eval_logger = MetricsLogger(run_dir, "eval")
+        self.evals_done = 0
+        self.first_call_s = None
+        self.t_start = self.start_step = None
+
+    def gstep(self, state) -> int:
+        return state.iteration * self.cfg.batch_size
+
+    def resume(self, state):
+        """The latest checkpoint's state if --resume finds one, else
+        `state`; then the evals done before it."""
+        if self.args.resume:
+            try:
+                state = learner.state_from_dict(self.ckpt.restore(),
+                                                state)
+                print(f"resumed from step {self.gstep(state)}",
+                      file=sys.stderr)
+            except FileNotFoundError:
+                print("no checkpoint found; starting fresh", file=sys.stderr)
+        self.evals_done = count_prior_evals(self.run_dir, self.gstep(state),
+                                            self.cfg)
+        return state
+
+    def save(self, state, flush=None) -> None:
+        self.ckpt.save(self.gstep(state), learner.state_to_dict(state))
+        record_eval_count(self.run_dir, self.gstep(state), self.evals_done)
+        if flush is not None:
+            flush()
+
+    def loop(self, state, step, make_row, steps_per_iter, evaluate,
+             flush=None):
+        """Train until the budget is spent (the last iteration included
+        when it is not a multiple of the batch, JAX train.py:538).
+        make_row(metrics) -> the iteration's row (one sync, inside its
+        `seconds`, which `steps_per_iter` env-steps divide into
+        `steps_per_s`); evaluate(state, gstep) -> (eval keys for the
+        printed row, the eval log's row).  Cadences restart from the
+        restored step; a Ctrl-C keeps the last whole iteration and saves
+        it."""
+        cfg, every = self.cfg, self.args.checkpoint_every
+        rows: List[Dict] = []
+        self.t_start = time.perf_counter()
+        self.start_step = start = self.gstep(state)
+        next_eval = (start // cfg.eval_every_steps) * cfg.eval_every_steps
+        next_ckpt = (start // every) * every
+        if start > 0:
+            next_eval += cfg.eval_every_steps
+            next_ckpt += every
+        try:
+            while self.gstep(state) < cfg.total_timesteps:
+                before = [g.get_state() for g in state.generators]
+                t0 = time.perf_counter()
+                try:
+                    new_state, metrics = step(state)
+                    row = make_row(metrics)
+                except KeyboardInterrupt:
+                    # the step drew from the generators: rewind them to
+                    # the state that is kept
+                    for g, s in zip(state.generators, before):
+                        g.set_state(s)
+                    raise
+                dt = time.perf_counter() - t0
+                state = new_state
+                if self.first_call_s is None:
+                    self.first_call_s = dt
+                gstep = self.gstep(state)
+                row.update(iteration=state.iteration, global_step=gstep,
+                           steps_per_s=steps_per_iter / dt, seconds=dt)
+                self.logger.log(row, step=gstep)
+                if gstep >= next_eval:
+                    t1 = time.perf_counter()
+                    shown, logged = evaluate(state, gstep)
+                    shown["eval_seconds"] = time.perf_counter() - t1
+                    logged["eval_seconds"] = shown["eval_seconds"]
+                    self.eval_logger.log(logged, step=gstep)
+                    row = {**row, **shown}
+                    self.evals_done += 1
+                    while next_eval <= gstep:
+                        next_eval += cfg.eval_every_steps
+                _emit(row, rows)
+                if gstep >= next_ckpt:
+                    self.save(state, flush)
+                    while next_ckpt <= gstep:
+                        next_ckpt += every
+        except KeyboardInterrupt:
+            print("interrupted; saving checkpoint", file=sys.stderr)
+        self.save(state, flush)
+        return state, rows
+
+    def summary(self, state, device, selection: Optional[Dict] = None
+                ) -> Dict:
+        """summary.json: JAX's keys, less those of its compile cache, phase
+        timers and fused iterations, with `device` for `n_devices`; a
+        population's adds its aggregate rate and `selection`."""
+        cfg = self.cfg
+        total = time.perf_counter() - self.t_start
+        steps_done = self.gstep(state) - self.start_step
+        first_steps = cfg.batch_size if self.first_call_s is not None else 0
+        post_steps = steps_done - first_steps
+        post_wall = total - (self.first_call_s or 0.0)
+        summary = {
+            "run_name": os.path.basename(self.run_dir),
+            "argv": self.args.argv,
+            "backend": "torch",
+            "device": str(device),
+            "config": {k: getattr(cfg, k) for k in (
+                "n_envs", "n_steps", "total_timesteps", "minibatch_size",
+                "n_epochs", "learning_rate", "anneal_lr", "seed",
+                "fused_rollout", "fused_update", "eval_every_steps")},
+            "population": self.args.population or None,
+            "global_step": self.gstep(state),
+            "steps_this_process": steps_done,
+            "total_wall_s": round(total, 3),
+            "init_s": round(self.t_start - self.t_main, 3),
+            "avg_steps_per_s": round(steps_done / max(total, 1e-9), 1),
+            "steady_steps_per_s": (round(post_steps / post_wall, 1)
+                                   if post_wall > 0 and post_steps > 0
+                                   else None),
+            "first_call_s": (round(self.first_call_s, 3)
+                             if self.first_call_s else None),
+        }
+        if self.args.population:
+            summary["aggregate_steps_per_s"] = round(
+                self.args.population * steps_done / max(total, 1e-9), 1)
+            summary["population_selection"] = selection
+        with open(os.path.join(self.run_dir, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=1)
+        self.logger.close()
+        self.eval_logger.close()
+        return summary
 
 
 def run(args) -> List[Dict[str, float]]:
@@ -193,40 +434,39 @@ def run(args) -> List[Dict[str, float]]:
     if args.population:
         return run_population(args)
     cfg = build_config(args)
+    learner.check_ported(cfg)
     device = resolve_device(args.device)
     env_params = DEFAULT_PARAMS
+    r = _Run(args, cfg, os.path.join(args.out_dir, run_name_of(args, cfg)))
     train_step = learner.make_train_step(cfg, env_params, device)
     state = learner.init_train_state(cfg, env_params, device)
     if args.init_params_npz:
         state = state.replace(
             params=_init_params(args.init_params_npz, 0).to(device))
+    state = r.resume(state)
     if args.exact_eval:
-        eval_fn = learner.make_exact_eval_fn(cfg, env_params, device=device)
+        eval_fn = learner.make_exact_eval_fn(
+            cfg, env_params, device=device,
+            skip_episodes=r.evals_done * cfg.eval_episodes)
     else:
         eval_fn = learner.make_eval_fn(cfg, env_params, device=device)
-    eval_gen = torch.Generator().manual_seed(cfg.seed + 1)
 
-    rows = []
-    next_eval = 0
-    # until the budget is spent, the last iteration included when the budget
-    # is not a multiple of the batch (JAX train.py:538)
-    while state.iteration * cfg.batch_size < cfg.total_timesteps:
-        t0 = time.perf_counter()
-        state, metrics = train_step(state)
+    def make_row(metrics):
         keys = list(metrics)
         values = torch.stack([metrics[k].to(torch.float64)
                               for k in keys]).tolist()     # one sync
-        dt = time.perf_counter() - t0
-        gstep = state.iteration * cfg.batch_size
-        row = dict(zip(keys, values))
-        row.update(iteration=state.iteration, global_step=gstep,
-                   steps_per_s=cfg.batch_size / dt, seconds=dt)
-        if gstep >= next_eval:
-            em = eval_fn(state.params, eval_gen)
-            row.update({k: float(v) for k, v in em.items()})
-            while next_eval <= gstep:
-                next_eval += cfg.eval_every_steps
-        _emit(row, rows)
+        return dict(zip(keys, values))
+
+    def evaluate(state, gstep):
+        em = {k: float(v) for k, v in eval_fn(
+            state.params, eval_generator(cfg.seed, gstep)).items()}
+        # best-model tracking rides the eval cadence (EvalCallback)
+        r.ckpt.update_best(gstep, learner.state_to_dict(state), em)
+        return em, dict(em)
+
+    state, rows = r.loop(state, train_step, make_row, cfg.batch_size,
+                         evaluate)
+    r.summary(state, device)
     return rows
 
 
@@ -239,59 +479,54 @@ def run_population(args) -> List[Dict]:
         raise ValueError("--exact-eval is a single-policy protocol; evaluate "
                          "the selected member afterwards with "
                          "acas2d_tpu_torch.eval --exact")
-    t_start = time.perf_counter()
     cfg = build_config(args)
+    learner.check_ported(cfg)
     device = resolve_device(args.device)
     env_params = DEFAULT_PARAMS
     pop = args.population
-    run_name = args.run_name or (
-        f"ppo_pop{pop}_{cfg.n_envs}x{cfg.n_steps}_{cfg.total_timesteps}"
-        f"_s{cfg.seed}")
+    run_name = run_name_of(args, cfg)
     run_dir = os.path.join(args.out_dir, run_name)
-    os.makedirs(run_dir, exist_ok=True)
+    r = _Run(args, cfg, run_dir)
 
     step = population.make_population_step(cfg, env_params, device)
     state = population.init_population(cfg, env_params, pop, device)
     if args.init_params_npz:
         state = state.replace(
             params=_init_params(args.init_params_npz, pop).to(device))
+    state = r.resume(state)
     eval_fn = population.make_population_eval(cfg, env_params, device=device)
     tracker = population.PopulationTracker(run_dir, pop, cfg.seed)
-    eval_gen = torch.Generator().manual_seed(cfg.seed + 1)
 
-    rows: List[Dict] = []
-    next_eval = 0
-    while state.iteration * cfg.batch_size < cfg.total_timesteps:
-        t0 = time.perf_counter()
-        state, metrics = step(state)
+    def make_row(metrics):
         keys = list(metrics)
         values = torch.stack([metrics[k].to(torch.float64)
                               for k in keys]).cpu().numpy()    # one sync
-        dt = time.perf_counter() - t0
-        gstep = state.iteration * cfg.batch_size
         row = {k: float(v.mean()) for k, v in zip(keys, values)}
         row.update(ep_return_max=float(values[keys.index("ep_return_mean")]
-                                       .max()),
-                   iteration=state.iteration, global_step=gstep,
-                   steps_per_s=population.population_throughput_steps(
-                       cfg, pop) / dt, seconds=dt)
-        if gstep >= next_eval:
-            em = {k: v.to(torch.float64).cpu().numpy()
-                  for k, v in eval_fn(state.params, eval_gen).items()}
-            vals = em["eval_return_mean"]
-            row.update({k: float(v.mean()) for k, v in em.items()})
-            row.update(eval_return_max=float(vals.max()),
-                       eval_best_member=int(vals.argmax()),
-                       eval_return_members=[round(float(v), 2)
-                                            for v in vals])
-            n_up = tracker.update(gstep, vals, state.params.cpu().numpy())
-            if n_up:
-                print(f"population: {n_up} member(s) improved; best="
-                      f"{tracker.best_vals.max():.2f} (member "
-                      f"{tracker.selected})", file=sys.stderr)
-            while next_eval <= gstep:
-                next_eval += cfg.eval_every_steps
-        _emit(row, rows)
+                                       .max()))
+        return row
+
+    def evaluate(state, gstep):
+        em = {k: v.to(torch.float64).cpu().numpy()
+              for k, v in eval_fn(state.params,
+                                  eval_generator(cfg.seed, gstep)).items()}
+        vals = em["eval_return_mean"]
+        shown = {k: float(v.mean()) for k, v in em.items()}
+        shown.update(eval_return_max=float(vals.max()),
+                     eval_best_member=int(vals.argmax()),
+                     eval_return_members=[round(float(v), 2) for v in vals])
+        n_up = tracker.update(gstep, vals, state.params.cpu().numpy())
+        if n_up:
+            print(f"population: {n_up} member(s) improved; best="
+                  f"{tracker.best_vals.max():.2f} (member "
+                  f"{tracker.selected})", file=sys.stderr)
+        logged = dict(shown, eval_return_members=json.dumps(
+            shown["eval_return_members"]))
+        return shown, logged
+
+    state, rows = r.loop(state, step, make_row,
+                         population.population_throughput_steps(cfg, pop),
+                         evaluate, tracker.flush)
 
     reval_vals = reval_stds = None
     if args.reval_episodes > 0 and tracker.snap_params is not None:
@@ -311,24 +546,7 @@ def run_population(args) -> List[Dict]:
     print(f"population: selected member {selection['selected_member']} "
           f"(seed {selection['selected_seed']}, by "
           f"{selection['selected_by']}) eval {sel_val:.2f}", file=sys.stderr)
-    total = time.perf_counter() - t_start
-    steps_done = state.iteration * cfg.batch_size
-    summary = {
-        "run_name": run_name,
-        "backend": "torch",
-        "device": str(device),
-        "config": {k: getattr(cfg, k) for k in (
-            "n_envs", "n_steps", "total_timesteps", "minibatch_size",
-            "n_epochs", "learning_rate", "anneal_lr", "seed",
-            "fused_rollout", "fused_update", "eval_every_steps")},
-        "population": pop,
-        "global_step": steps_done,
-        "total_wall_s": round(total, 3),
-        "aggregate_steps_per_s": round(pop * steps_done / max(total, 1e-9), 1),
-        "population_selection": selection,
-    }
-    with open(os.path.join(run_dir, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=1)
+    r.summary(state, device, selection)
 
     if args.polish_steps > 0:
         if tracker.snap_params is None:
@@ -349,6 +567,7 @@ def polish_argv(args, run_dir: str, run_name: str) -> List[str]:
             "--init-params-npz", init_art,
             "--total-steps", str(args.polish_steps),
             "--lr", str(args.polish_lr),
+            "--checkpoint-every", str(args.polish_steps),
             "--seed", str(args.seed + 50),
             "--run-name", f"{run_name}_polish",
             "--out-dir", args.out_dir,

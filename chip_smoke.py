@@ -40,7 +40,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      gate); then one more population iteration cut into rollout / GAE /
      update;
   6. exact evaluation (float64 env) of artifacts/ppo_tpu_e_polished_best.npz,
-     100 episodes, held to its committed record;
+     100 episodes (the greedy loop as replayed CUDA graphs), held to its
+     committed record;
   7. the env-only rollout kernel against its plain version (B = 32,768 envs
      flown part-way so that collisions, goals and timeouts occur, T = 256,
      random actions without and with the observation checksum, and zero
@@ -68,7 +69,22 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      time the launch would take at the card's full issue rate (4
      instructions a clock an SM) if every instruction of its loop body,
      the rare paths included, issued every step: an upper bound of that
-     time from the static count, not a measured share.
+     time from the static count, not a measured share;
+ 11. the pipeline's in-training eval (32 members x 32 episodes) and the
+     solo preset's (10 episodes) through the eager greedy loop and through
+     its 64-step chunks replayed as CUDA graphs (`learner.GreedyEval`):
+     returns, lengths and outcomes bit-identical, both timed;
+ 12. a whole solo run, `train --preset tpu` at its default budget (32
+     iterations, evals of 10 episodes every 4, a checkpoint every
+     iteration), with the launch counters read around it, its kept
+     checkpoints, best/ and summary.json checked, its wall time and the
+     evals' part of it; then `eval --run DIR --best --exact --episodes 100`
+     (finite; no score gate: one seed of a 32-iteration run);
+ 13. exact resume: 6 solo iterations straight against 3 and a --resume
+     to 6; the population command (P = 32) for 3 iterations against the
+     same command stopped by a Ctrl-C in its third iteration and resumed;
+     params, Adam moments and env state bit-identical.
+Every training run writes its run directory into a temporary directory.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -77,6 +93,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -488,10 +505,12 @@ def check_finite(rows):
 
 def phase_main_path():
     from acas2d_tpu_torch import train
-    argv = ["--preset", "tpu", "--total-steps", str(ITERS * SOLO_B * 128)]
-    reset_counts()
-    rows = train.run(train.parse_args(argv))
-    launches = read_counts()
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--preset", "tpu", "--total-steps", str(ITERS * SOLO_B * 128),
+                "--out-dir", out]
+        reset_counts()
+        rows = train.run(train.parse_args(argv))
+        launches = read_counts()
     print(f"[main] launches over {ITERS} iterations: {launches}")
     check(launches == expected(policy_rollout=8 * ITERS,
                                ppo_grads=40 * ITERS))
@@ -581,9 +600,7 @@ def phase_population():
 
 
 def phase_population_breakdown():
-    """One population iteration cut into its phases, and one greedy eval of
-    the 32 members (32 episodes each, the pipeline's in-training eval),
-    host clock around work that ends in a synchronise."""
+    """One population iteration cut into its phases."""
     from acas2d_tpu_torch import train
     from acas2d_tpu_torch.ppo import population
     cfg = train.build_config(train.parse_args(POP_ARGV))
@@ -592,17 +609,6 @@ def phase_population_breakdown():
         lambda mark: population.make_population_step(
             cfg, DEFAULT_PARAMS, "cuda", on_phase=mark), state)
     print(f"[breakdown] population iteration phases (ms): {json.dumps(ms)}")
-    eval_fn = population.make_population_eval(cfg, DEFAULT_PARAMS,
-                                              device="cuda")
-    gen = torch.Generator().manual_seed(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    em = eval_fn(state.params, gen)
-    torch.cuda.synchronize()
-    print(f"[breakdown] one population eval ({POP} members x "
-          f"{cfg.eval_episodes} episodes, mean length "
-          f"{float(em['eval_length_mean'].mean()):.1f} steps): "
-          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     return ms
 
 
@@ -617,6 +623,180 @@ def phase_eval():
     check(res["goals"] == rec["goals"])
     check(abs(res["mean_reward"] - rec["mean_reward"]) < EVAL_TOL)
     check(abs(res["std_reward_ddof1"] - rec["std_reward"]) < EVAL_TOL)
+
+
+# ------------------------------------------------------------ phases 11-13
+
+def synced_ms(fn):
+    """(fn(), host ms around it, from a synchronised start to a
+    synchronised end)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_greedy_graphs():
+    """Two in-training evals of initial policies through the eager greedy
+    loop and through `learner.GreedyEval` (its 64-step chunks captured as
+    CUDA graphs, then replayed): the pipeline's, 32 members x 32 episodes,
+    and the solo `tpu` preset's, 10 episodes.  Equal returns, lengths and
+    outcomes, bit for bit, and the times of both, the capture's first call
+    apart."""
+    from acas2d_tpu_torch import train
+    from acas2d_tpu_torch.ppo import learner, population
+    cfg = train.build_config(train.parse_args(POP_ARGV))
+    members = population.init_population(cfg, DEFAULT_PARAMS, POP,
+                                         "cuda").params
+    solo_cfg = train.build_config(train.parse_args(["--preset", "tpu"]))
+    cases = (("population", members, True, POP * cfg.eval_episodes),
+             ("solo", members[0], False, solo_cfg.eval_episodes))
+    for name, params, is_members, n in cases:
+        es, obs = vector.reset_batch(n, DEFAULT_PARAMS,
+                                     torch.Generator().manual_seed(0),
+                                     torch.float32, "cuda")
+        greedy = learner.GreedyEval(members=is_members, device="cuda")
+        eager, eager_ms = synced_ms(lambda: learner.greedy_rollout(
+            lambda o: greedy.policy_mean(params, o), es, obs,
+            DEFAULT_PARAMS))
+        first, first_ms = synced_ms(
+            lambda: greedy(params, es, obs, DEFAULT_PARAMS))
+        graph, graph_ms = synced_ms(
+            lambda: greedy(params, es, obs, DEFAULT_PARAMS))
+        for got in (first, graph):
+            for k, v in eager.items():
+                check(got[k].dtype == v.dtype and torch.equal(got[k], v),
+                      f"graph and eager {name} evals differ in {k}")
+        print(f"[graphs] one {name} eval ({n} episodes, lengths mean "
+              f"{float(eager['length'].float().mean()):.1f}, max "
+              f"{int(eager['length'].max())} steps): eager {eager_ms:.1f} "
+              f"ms, graphs {graph_ms:.1f} ms ({eager_ms / graph_ms:.2f}x; "
+              f"the first call, with the capture, {first_ms:.1f} ms); "
+              f"returns, lengths and outcomes bit-identical")
+
+
+WHOLE_ITERS = 32          # the tpu preset's budget, 8,388,608 env-steps
+
+
+def phase_solo_run():
+    """`train --preset tpu` at its default budget (32 iterations of 2048 x
+    128; evals of 10 episodes every 4 iterations), a checkpoint every
+    iteration, with the launch counters read around it; then its best
+    checkpoint through `eval --run --best --exact --episodes 100`."""
+    from acas2d_tpu_torch import eval as eval_driver
+    from acas2d_tpu_torch import train
+    batch = SOLO_B * 128
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--preset", "tpu", "--checkpoint-every", str(batch),
+                "--out-dir", out, "--run-name", "solo"]
+        reset_counts()
+        rows, wall_ms = synced_ms(lambda: train.run(train.parse_args(argv)))
+        launches = read_counts()
+        print(f"[solo run] launches over {WHOLE_ITERS} iterations: "
+              f"{launches}")
+        check(len(rows) == WHOLE_ITERS, f"{len(rows)} rows")
+        check(launches == expected(policy_rollout=8 * WHOLE_ITERS,
+                                   ppo_grads=40 * WHOLE_ITERS))
+        check_finite(rows)
+        run_dir = os.path.join(out, "solo")
+        ckpt_dir = os.path.join(run_dir, "checkpoints")
+        kept = sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
+        check(kept == [batch * i for i in range(WHOLE_ITERS - 4,
+                                                WHOLE_ITERS + 1)],
+              f"kept checkpoints {kept}")
+        with open(os.path.join(ckpt_dir, "best", "best_value.json")) as f:
+            best = json.load(f)
+        check(os.path.exists(os.path.join(ckpt_dir, "best", "state.pt")))
+        with open(os.path.join(run_dir, "summary.json")) as f:
+            summary = json.load(f)
+        check(summary["global_step"] == WHOLE_ITERS * batch
+              and summary["device"] == "cuda")
+        evals = [r for r in rows if "eval_seconds" in r]
+        eval_s = sum(r["eval_seconds"] for r in evals)
+        train_s = sum(r["seconds"] for r in rows)
+        print(f"[solo run] wall {wall_ms / 1e3:.2f} s: {len(evals)} evals "
+              f"{eval_s:.2f} s ({100 * eval_s / (wall_ms / 1e3):.1f}%), "
+              f"iterations {train_s:.2f} s; eval returns "
+              f"{[round(r['eval_return_mean'], 2) for r in evals]}; best "
+              f"{best['value']:.2f} at step {best['step']}; summary "
+              f"{json.dumps({k: summary[k] for k in ('total_wall_s', 'init_s', 'avg_steps_per_s', 'steady_steps_per_s', 'first_call_s')})}")
+        res = eval_driver.run(eval_driver.parse_args(
+            ["--run", run_dir, "--best", "--exact", "--episodes", "100"]))
+        print(f"[solo run] exact eval of the best checkpoint: mean "
+              f"{res['mean_reward']:.4f}, std (ddof 1) "
+              f"{res['std_reward_ddof1']:.4f}, goals {res['goals']}/100, "
+              f"collisions {res['collisions']}, timeouts {res['timeouts']}")
+        check(math.isfinite(res["mean_reward"]) and res["episodes"] == 100)
+    return wall_ms / 1e3, eval_s
+
+
+def stopped_after(make_step, iters):
+    """A step factory like `make_step` whose steps raise KeyboardInterrupt
+    once a step has completed iteration iters + 1 (after its draws), as a
+    Ctrl-C inside that iteration would."""
+    def make(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def interrupted(state, *a, **k):
+            out = step(state, *a, **k)
+            if out[0].iteration > iters:
+                raise KeyboardInterrupt
+            return out
+        return interrupted
+    return make
+
+
+def phase_resume():
+    """Exact resume on the card.  Solo `tpu` preset: 6 iterations straight
+    against a 3-iteration run and a --resume to 6.  The population command
+    (P = 32, --anneal-lr, no re-eval, no polish): 3 iterations straight
+    against the same command stopped by a Ctrl-C in its third iteration
+    (its learning-rate schedule is sized by the budget, so the budget stays)
+    and a --resume.  The final params, Adam moments and env state must be
+    bit-identical."""
+    from acas2d_tpu_torch import train
+    from acas2d_tpu_torch.ppo import population
+    cases = (("solo", ["--preset", "tpu"], SOLO_B * 128, 6, 3),
+             ("population", POP_ARGV + ["--reval-episodes", "0",
+                                        "--polish-steps", "0"],
+              POP_B * 128, 3, 2))
+    real_step = population.make_population_step
+    with tempfile.TemporaryDirectory() as out:
+        for name, argv, batch, total, half in cases:
+            def go(where, its, *extra):
+                train.run(train.parse_args(
+                    argv + ["--checkpoint-every", str(batch), "--run-name",
+                            name, "--out-dir", os.path.join(out, where),
+                            "--total-steps", str(its * batch), *extra]))
+                return os.path.join(out, where, name, "checkpoints",
+                                    str(its * batch), "state.pt")
+            want = torch.load(go("straight", total), weights_only=True)
+            if name == "solo":
+                go("split", half)
+            else:
+                population.make_population_step = stopped_after(real_step,
+                                                                half)
+                try:
+                    go("split", total)
+                finally:
+                    population.make_population_step = real_step
+            got = torch.load(go("split", total, "--resume"),
+                             weights_only=True)
+            leaves = {"params": (got["params"], want["params"]),
+                      "adam.mu": (got["adam"]["mu"], want["adam"]["mu"]),
+                      "adam.nu": (got["adam"]["nu"], want["adam"]["nu"]),
+                      "obs": (got["obs"], want["obs"])}
+            leaves.update({f"env.{k}": (got["env_state"][k], v)
+                           for k, v in want["env_state"].items()})
+            differ = [k for k, (a, b) in leaves.items()
+                      if not torch.equal(a, b)]
+            check(not differ and got["adam"]["count"] == want["adam"]["count"]
+                  and got["iteration"] == want["iteration"] == total,
+                  f"{name} resume differs from the straight run in {differ}")
+            print(f"[resume] {name}: {half} iterations and a --resume to "
+                  f"{total} equal {total} straight, bit for bit "
+                  f"({len(leaves)} tensors)")
 
 
 # ------------------------------------------------------------------ phase 7
@@ -908,11 +1088,12 @@ def phase_bf16_training():
     counters around each.  Then one more bf16 population iteration cut into
     its phases.  Returns (solo launches, population launches, phase ms)."""
     from acas2d_tpu_torch import train
-    argv = ["--preset", "tpu", "--fused-update-bf16",
-            "--total-steps", str(ITERS * SOLO_B * 128)]
-    reset_counts()
-    rows = train.run(train.parse_args(argv))
-    solo = read_counts()
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--preset", "tpu", "--fused-update-bf16",
+                "--total-steps", str(ITERS * SOLO_B * 128), "--out-dir", out]
+        reset_counts()
+        rows = train.run(train.parse_args(argv))
+        solo = read_counts()
     print(f"[bf16 train] launches over {ITERS} iterations: {solo}")
     check(solo == expected(policy_rollout=8 * ITERS, ppo_grads=40 * ITERS))
     check_finite(rows)
@@ -1187,6 +1368,9 @@ def main() -> int:
     bench_runs = phase_bench()
     bf16_launches = phase_bf16_training()
     phase_eval()
+    phase_greedy_graphs()
+    phase_solo_run()
+    phase_resume()
     cu, pt = "acas2d_tpu_torch/csrc/", "acas2d_tpu/ops/"
     rows = [
         ("policy_rollout", time_rollout,

@@ -16,19 +16,28 @@ pass.  On a machine with a card, run them with
 use).  Tolerances are chip_smoke.py's, for the reasons stated there.
 """
 
+import json
+import os
+
+import numpy as np
 import pytest
 import torch
 
-from acas2d_tpu_torch import ab, policy_ab
+from acas2d_tpu_torch import ab, policy_ab, train
 from acas2d_tpu_torch.config import DEFAULT_PARAMS
-from acas2d_tpu_torch.envs import vector
+from acas2d_tpu_torch.envs import core, vector
 from acas2d_tpu_torch.models.actor_critic import ActorCritic, flatten
+from acas2d_tpu_torch.oracle import MersenneSpawner
 from acas2d_tpu_torch.ops import (_cuda, env_rollout, policy_rollout,
                                   ppo_grads, precision_probe)
 from acas2d_tpu_torch.ops import step_math as sm
+from acas2d_tpu_torch.ppo import learner
+from acas2d_tpu_torch.utils.params_io import load_flat_params
 
 ROLLOUT_RTOL, ROLLOUT_ATOL = 1e-4, 1e-3
 GRAD_REL_TOL = 1e-4
+FLAGSHIP = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "artifacts", "ppo_tpu_e_polished_best.npz")
 
 
 @pytest.fixture
@@ -374,6 +383,108 @@ def test_precision_probe_kernel(cuda):
     want = precision_probe.precision_probe(x, y)
     for g, w in zip(got, want):
         assert torch.allclose(g.cpu(), w, rtol=0, atol=1e-4)
+
+
+# ------------------------------------------ greedy eval as CUDA graphs
+
+def _greedy_case(kind, dev):
+    """(GreedyEval, params, env_state, obs) of an eval on the card: the
+    flagship on 10 sampled spawns in float32 (ends early), on 100 Mersenne
+    spawns in float64 (the exact protocol), or 32 random members on 32
+    spawns each (time out: the 40-step tail graph runs)."""
+    gen = torch.Generator().manual_seed(8)
+    if kind == "members":
+        params = torch.stack([flatten(ActorCritic(generator=gen))
+                              for _ in range(32)]).to(dev)
+        es, obs = vector.reset_batch(32 * 32, DEFAULT_PARAMS, gen,
+                                     torch.float32, dev)
+        return learner.GreedyEval(members=True, device=dev), params, es, obs
+    params = load_flat_params(FLAGSHIP)[0].to(dev)
+    if kind == "solo":
+        es, obs = vector.reset_batch(10, DEFAULT_PARAMS, gen, torch.float32,
+                                     dev)
+    else:
+        inits = MersenneSpawner(DEFAULT_PARAMS,
+                                skip_episodes=2).spawn_batch(100)
+        es, obs = core.reset_from(
+            np.array([i.player_psi for i in inits]),
+            np.stack([i.traffic_x for i in inits]),
+            np.stack([i.traffic_y for i in inits]),
+            np.stack([i.traffic_v for i in inits]),
+            np.stack([i.traffic_psi for i in inits]),
+            np.array([i.num_traffic for i in inits]),
+            DEFAULT_PARAMS, torch.float64, dev)
+    return learner.GreedyEval(device=dev), params, es, obs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["solo", "exact", "members"])
+def test_greedy_graphs_equal_the_eager_loop(cuda, kind):
+    greedy, params, es, obs = _greedy_case(kind, cuda)
+    eager = learner.greedy_rollout(lambda o: greedy.policy_mean(params, o),
+                                   es, obs, DEFAULT_PARAMS)
+    for _ in range(2):           # the capture, then the cached graphs
+        got = greedy(params, es, obs, DEFAULT_PARAMS)
+        for k, v in eager.items():
+            assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+    assert len(greedy._graphs) == 1
+    if kind == "exact":
+        assert float(eager["return"].mean()) == pytest.approx(1252.72,
+                                                             abs=0.05)
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda, monkeypatch):
+    """A host sync inside the loop cannot be captured: the eval raises and
+    does not fall back to the eager loop."""
+    greedy, params, es, obs = _greedy_case("solo", cuda)
+    real = greedy.policy_mean
+
+    def syncs(p, o):
+        return real(p, o) + 0.0 * float(o[0, 0])
+
+    monkeypatch.setattr(greedy, "policy_mean", syncs)
+    with pytest.raises(RuntimeError):
+        greedy(params, es, obs, DEFAULT_PARAMS)
+    assert not greedy._graphs
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pop", [0, 4])
+def test_resume_is_exact_on_the_card(cuda, pop, tmp_path):
+    """Four iterations straight equal two and a --resume for two more, bit
+    for bit, solo (with --exact-eval) and with 4 members."""
+    B = 1024 * 32
+    argv = ["--preset", "tpu", "--n-envs", "1024", "--n-steps", "32",
+            "--minibatch-size", "8192", "--n-epochs", "2",
+            "--eval-episodes", "4", "--eval-every", str(2 * B),
+            "--checkpoint-every", str(B), "--run-name", "r"] + (
+        ["--population", str(pop), "--reval-episodes", "0"] if pop
+        else ["--exact-eval"])
+
+    def run(out, total, *extra):
+        train.run(train.parse_args(argv + ["--out-dir", str(out),
+                                           "--total-steps", str(total),
+                                           *extra]))
+        run_dir = out / "r"
+        with open(run_dir / "train.jsonl") as f:
+            rows = [{k: v for k, v in json.loads(line).items()
+                     if k not in ("steps_per_s", "seconds", "wall_time_s")}
+                    for line in f]
+        return rows, torch.load(run_dir / "checkpoints" / str(total)
+                                / "state.pt", weights_only=True)
+
+    rows, want = run(tmp_path / "straight", 4 * B)
+    run(tmp_path / "split", 2 * B)
+    got_rows, got = run(tmp_path / "split", 4 * B, "--resume")
+    assert got_rows == rows and len(rows) == 4
+    for k in ("params", "obs"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("mu", "nu"):
+        assert torch.equal(got["adam"][k], want["adam"][k]), k
+    for k, v in want["env_state"].items():
+        assert torch.equal(got["env_state"][k], v), k
 
 
 def test_kernel_wrappers_check_operands():

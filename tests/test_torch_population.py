@@ -55,6 +55,17 @@ SHAPE = dict(n_envs=1024, n_steps=8, fused_chunk=4, minibatch_size=2048,
 PARAM_ATOL = 2e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs several workers side by side,
+    and these loops of small ops slow down many-fold when the workers'
+    threads contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.tensor(np.asarray(x))
 
@@ -326,13 +337,14 @@ def test_population_driver_refuses_exact_eval():
                                            "--exact-eval"]))
 
 
-def test_solo_packed_update_is_the_fused_update(capsys):
+def test_solo_packed_update_is_the_fused_update(capsys, tmp_path):
     """--fused-update-packed trains the solo run exactly as the fused
     update: the port's parameters are always the kernel's flat layout."""
     base = ["--preset", "tpu", "--device", "cpu", "--n-envs", "32",
             "--n-steps", "16", "--minibatch-size", "256", "--n-epochs", "1",
-            "--total-steps", str(32 * 16), "--eval-episodes", "2"]
-    timing = ("steps_per_s", "seconds")
+            "--total-steps", str(32 * 16), "--eval-episodes", "2",
+            "--out-dir", str(tmp_path)]
+    timing = ("steps_per_s", "seconds", "eval_seconds")
     rows = [{k: v for k, v in r.items() if k not in timing}
             for flags in ([], ["--fused-update-packed"])
             for r in train.run(train.parse_args(base + flags))]

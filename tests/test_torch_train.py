@@ -11,12 +11,14 @@ tested in test_torch_population.py."""
 
 import json
 import math
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from acas2d_tpu_torch import train
+from acas2d_tpu_torch.config import DEFAULT_PARAMS
 from acas2d_tpu_torch.ppo import learner
 
 ITERS = 2
@@ -25,9 +27,22 @@ TINY = ["--preset", "tpu", "--device", "cpu", "--n-envs", "64",
         "--total-steps", str(ITERS * 64 * 32), "--eval-episodes", "4"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs several workers side by side,
+    and these loops of small ops slow down many-fold when the workers'
+    threads contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("exact_eval", [False, True])
-def test_driver_prints_one_finite_row_per_iteration(exact_eval, capsys):
-    argv = TINY + (["--exact-eval"] if exact_eval else [])
+def test_driver_prints_one_finite_row_per_iteration(exact_eval, capsys,
+                                                    tmp_path):
+    argv = TINY + ["--out-dir", str(tmp_path)] + (
+        ["--exact-eval"] if exact_eval else [])
     rows = train.run(train.parse_args(argv))
     printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert printed == rows and len(rows) == ITERS
@@ -38,6 +53,29 @@ def test_driver_prints_one_finite_row_per_iteration(exact_eval, capsys):
         assert not bad, bad
     assert rows[0]["eval_done_all"] == 1.0
     assert 0.0 <= rows[0]["eval_goal_rate"] <= 1.0
+
+
+def test_iteration_seconds_include_the_metrics_read(tmp_path):
+    """A row's `seconds` runs from the step's start to its metrics on the
+    host (the read that waits for the step's queued work), and
+    `steps_per_s` divides the iteration's env-steps by it."""
+    args = train.parse_args(TINY + ["--out-dir", str(tmp_path)])
+    cfg = train.build_config(args)
+    r = train._Run(args, cfg, str(tmp_path / "r"))
+    state = learner.init_train_state(cfg, DEFAULT_PARAMS, "cpu")
+
+    def step(s):
+        return s.replace(iteration=s.iteration + 1), {}
+
+    def make_row(metrics):
+        time.sleep(0.05)                  # a slow metrics read
+        return {}
+
+    _, rows = r.loop(state, step, make_row, 1000, lambda s, g: ({}, {}))
+    assert len(rows) == ITERS
+    for row in rows:
+        assert row["seconds"] >= 0.05
+        assert row["steps_per_s"] == 1000 / row["seconds"]
 
 
 @pytest.mark.parametrize("flag", [["--population", "2",
@@ -62,8 +100,9 @@ def test_driver_trains_with_bf16_update(population, tmp_path, monkeypatch):
         return real(*args, **kw)
 
     monkeypatch.setattr(learner, "ppo_minibatch_grads_members", spy)
-    extra = (["--population", str(population), "--reval-episodes", "0",
-              "--out-dir", str(tmp_path)] if population else [])
+    extra = ["--out-dir", str(tmp_path)] + (
+        ["--population", str(population), "--reval-episodes", "0"]
+        if population else [])
     rows = train.run(train.parse_args(TINY + ["--fused-update-bf16"] + extra))
     assert len(rows) == ITERS
     assert calls and all(calls) and len(calls) == ITERS * 2 * 2
@@ -81,8 +120,9 @@ def test_driver_spends_a_budget_that_is_not_a_multiple_of_the_batch(
     learning-rate anneal is still sized by n_iterations (= 1, as JAX
     learner.py sizes optax's schedule), so the second iteration runs at
     its clamped lr 0."""
-    extra = (["--population", str(population), "--reval-episodes", "0",
-              "--out-dir", str(tmp_path)] if population else [])
+    extra = ["--out-dir", str(tmp_path)] + (
+        ["--population", str(population), "--reval-episodes", "0"]
+        if population else [])
     argv = ["--device", "cpu", "--preset", "tpu", "--n-envs", "64",
             "--n-steps", "32", "--minibatch-size", "512", "--total-steps",
             "3000", "--eval-episodes", "4", "--anneal-lr"] + extra
@@ -97,7 +137,7 @@ def test_driver_spends_a_budget_that_is_not_a_multiple_of_the_batch(
     assert opt.step_size(2 * opt.total_updates) == 0.0
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint-every", "32768"],
+@pytest.mark.parametrize("flag", [["--iters-per-call", "4"],
                                   ["--gpus", "2"]])
 def test_driver_does_not_know_unported_modes(flag, capsys):
     with pytest.raises(SystemExit):
