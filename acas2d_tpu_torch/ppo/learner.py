@@ -616,17 +616,26 @@ def exact_episodes(params: torch.Tensor, env_params: EnvParams,
     (oracle.MersenneSpawner + core.reset_from), `n_episodes` draws, played
     by `greedy` (default a new solo `GreedyEval`)."""
     dev = resolve_device(device)
+    env_state, obs = mersenne_reset(env_params, spawner, n_episodes, dtype,
+                                    dev)
+    greedy = greedy if greedy is not None else GreedyEval(device=dev)
+    return greedy(params, env_state, obs, env_params)
+
+
+def mersenne_reset(env_params: EnvParams, spawner: MersenneSpawner,
+                   n_episodes: int, dtype=torch.float64, device=None
+                   ) -> Tuple[EnvState, torch.Tensor]:
+    """The next `n_episodes` spawns of the reference's Mersenne stream,
+    reset (oracle.MersenneSpawner + core.reset_from)."""
     inits = spawner.spawn_batch(n_episodes)
-    env_state, obs = core.reset_from(
+    return core.reset_from(
         np.array([i.player_psi for i in inits]),
         np.stack([i.traffic_x for i in inits]),
         np.stack([i.traffic_y for i in inits]),
         np.stack([i.traffic_v for i in inits]),
         np.stack([i.traffic_psi for i in inits]),
         np.array([i.num_traffic for i in inits]),
-        env_params, dtype, dev)
-    greedy = greedy if greedy is not None else GreedyEval(device=dev)
-    return greedy(params, env_state, obs, env_params)
+        env_params, dtype, device)
 
 
 def make_exact_eval_fn(cfg: PPOConfig, env_params: EnvParams,

@@ -28,8 +28,12 @@ re-evaluates all of them at the end and writes `selected_best.npz`,
 `top_snapshots.npz`, `population.json` and `summary.json` into
 `<out-dir>/<run-name>/`.  `--polish-steps` then chains polish stages
 (`<run-name>_polish`, ...), each warm-started round-robin from the previous
-stage's top snapshots.  `global_step` counts each member's env-steps;
-`steps_per_s` is the whole population's.
+stage's top snapshots; after each, its `population.json` gains the stage
+before it (`stage1`) and the stage labels (`pipeline`), as JAX's
+`scripts/population_merge.py` writes them.  `python -m
+acas2d_tpu_torch.pipeline` runs the whole shipped pipeline.
+`global_step` counts each member's env-steps; `steps_per_s` is the whole
+population's.
 
 Every run keeps a run directory, `<out-dir>/<run-name>/` (JAX's default
 name, `ppo_[popP_]<envs>x<steps>_<total>_s<seed>`):
@@ -73,7 +77,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from acas2d_tpu_torch import resolve_device
+from acas2d_tpu_torch import population_merge, resolve_device
 from acas2d_tpu_torch.config import DEFAULT_PARAMS
 from acas2d_tpu_torch.ppo import learner, population
 from acas2d_tpu_torch.ppo.config import PPOConfig, tpu_default
@@ -535,10 +539,15 @@ def run_population(args) -> List[Dict]:
             dataclasses.replace(cfg, eval_episodes=args.reval_episodes),
             env_params, device=device)
         flat, _ = tracker.snapshots_flat()
+        t0 = time.perf_counter()
         rm = reval_fn(torch.as_tensor(flat, device=device),
                       torch.Generator().manual_seed(cfg.seed + 99))
         reval_vals = rm["eval_return_mean"].cpu().numpy()
         reval_stds = rm["eval_return_std"].cpu().numpy()
+        print(f"population: re-eval of {flat.shape[0]} snapshots "
+              f"({pop} members x {tracker.k}), {args.reval_episodes} "
+              f"episodes each: {time.perf_counter() - t0:.3f} s",
+              file=sys.stderr)
     selection = tracker.finalize(reval_vals, reval_episodes=args.reval_episodes,
                                  reval_stds=reval_stds)
     sel_val = selection.get("selected_reval",
@@ -554,7 +563,21 @@ def run_population(args) -> List[Dict]:
             print("polish skipped: no selection artifact", file=sys.stderr)
         else:
             rows += run(parse_args(polish_argv(args, run_dir, run_name)))
+            # the pipeline-level record (the committed-artifact schema)
+            population_merge.merge(
+                run_dir, os.path.join(args.out_dir, f"{run_name}_polish"),
+                [f"stage1_population{pop}"
+                 + ("_rollpacked" if cfg.fused_update_packed
+                    and cfg.fused_rollout else ""),
+                 f"reval{args.reval_episodes}_risk_adjusted",
+                 f"polish_population{polish_population(args)}"])
     return rows
+
+
+def polish_population(args) -> int:
+    """The polish stage's members: --polish-pop, else half the
+    population."""
+    return args.polish_pop or max(args.population // 2, 1)
 
 
 def polish_argv(args, run_dir: str, run_name: str) -> List[str]:
@@ -562,7 +585,7 @@ def polish_argv(args, run_dir: str, run_name: str) -> List[str]:
     population of --polish-pop members warm-started from this stage's top
     snapshots, seed + 50, --polish-lr, in `<run-name>_polish`."""
     init_art = os.path.join(run_dir, "top_snapshots.npz")
-    polish_pop = args.polish_pop or max(args.population // 2, 1)
+    polish_pop = polish_population(args)
     argv = ["--population", str(polish_pop),
             "--init-params-npz", init_art,
             "--total-steps", str(args.polish_steps),

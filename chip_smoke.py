@@ -41,7 +41,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      update;
   6. exact evaluation (float64 env) of artifacts/ppo_tpu_e_polished_best.npz,
      100 episodes (the greedy loop as replayed CUDA graphs), held to its
-     committed record;
+     committed record, with its episode CSV (`--out`, the telemetry
+     rollout of the same spawns): 100 goals whose mean Total Reward is the
+     summary's;
   7. the env-only rollout kernel against its plain version (B = 32,768 envs
      flown part-way so that collisions, goals and timeouts occur, T = 256,
      random actions without and with the observation checksum, and zero
@@ -83,7 +85,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  13. exact resume: 6 solo iterations straight against 3 and a --resume
      to 6; the population command (P = 32) for 3 iterations against the
      same command stopped by a Ctrl-C in its third iteration and resumed;
-     params, Adam moments and env state bit-identical.
+     params, Adam moments and env state bit-identical;
+ 14. the shipped pipeline (`python -m acas2d_tpu_torch.pipeline`) at a cut
+     budget: phase 5's stage 1 with two polish rounds of one iteration, a
+     gate no policy reaches and two attempts; the launch counters read
+     around it, its 6 candidate dirs (each stage 1 among them), the merge
+     record of each polish stage, the `_final` record against the
+     committed artifact's keys, and its strict eval's CSV against the
+     exact eval of the kept policy, episode for episode.
 Every training run writes its run directory into a temporary directory.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -91,6 +100,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import csv
 import json
 import math
 import os
@@ -103,7 +113,7 @@ import numpy as np
 import torch
 
 from acas2d_tpu_torch import policy_ab
-from acas2d_tpu_torch.config import DEFAULT_PARAMS
+from acas2d_tpu_torch.config import DEFAULT_PARAMS, OUTCOME_NAMES
 from acas2d_tpu_torch.envs import vector
 from acas2d_tpu_torch.models.actor_critic import (ActorCritic, N_PARAMS,
                                                   OBS_DIM, HIDDEN, flatten,
@@ -160,6 +170,11 @@ CUDA_CORE_GRAD_REL_ERR = 2.0e-5
 #  flagship eval: the float32 policy's matmuls sum in another order on the
 #  card than on the CPU where the record was made; the record has 2 decimals.
 EVAL_TOL = 0.05
+#  an episode CSV's Total Reward against the greedy eval's return of the
+#  same episode: the same float64 rewards, summed pairwise (numpy) in the
+#  CSV and one by one in the greedy loop; a wrong reward or a step too many
+#  is off by 1e-3 or more.
+CSV_SUM_TOL = 1e-6
 #  env-only rollout: `env_rollout.agreement` states the rule (an ulp a step
 #  of FMA drift, sums growing with T, at most 0.1% of envs flipping a
 #  float32 threshold).
@@ -591,7 +606,8 @@ def phase_population():
               f"score {sel['selected_score']:.2f}")
         res = eval_driver.run(eval_driver.parse_args(
             ["--params-npz", f"{out}/pop_polish/selected_best.npz",
-             "--exact", "--episodes", "100"]))
+             "--exact", "--episodes", "100", "--out",
+             f"{out}/eval_100.csv"]))
         print(f"[population] exact eval of the selected policy: "
               f"{json.dumps(res)}")
         check(math.isfinite(res["mean_reward"]) and res["episodes"] == 100)
@@ -614,15 +630,36 @@ def phase_population_breakdown():
 
 # ------------------------------------------------------------------ phase 6
 
+def read_csv(path):
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
 def phase_eval():
+    """The flagship's exact eval with its episode CSV (`--out`): the
+    summary held to the record, the CSV's 100 rows all goals, and the mean
+    of their Total Reward the summary's mean (the summary is taken from
+    the same records)."""
     from acas2d_tpu_torch import eval as eval_driver
-    res = eval_driver.run(eval_driver.parse_args(
-        ["--params-npz", FLAGSHIP, "--exact", "--episodes", "100"]))
-    print(f"[eval] {json.dumps(res)}")
+    with tempfile.TemporaryDirectory() as out:
+        path = os.path.join(out, "eval_100.csv")
+        res, ms = synced_ms(lambda: eval_driver.run(eval_driver.parse_args(
+            ["--params-npz", FLAGSHIP, "--exact", "--episodes", "100",
+             "--out", path])))
+        rows = read_csv(path)
+    print(f"[eval] {json.dumps(res)} ({ms / 1e3:.2f} s with the CSV)")
     rec = FLAGSHIP_RECORD
     check(res["goals"] == rec["goals"])
     check(abs(res["mean_reward"] - rec["mean_reward"]) < EVAL_TOL)
     check(abs(res["std_reward_ddof1"] - rec["std_reward"]) < EVAL_TOL)
+    csv_mean = float(np.mean([float(r["Total Reward"]) for r in rows]))
+    print(f"[eval] CSV: {len(rows)} rows, outcomes "
+          f"{sorted(set(r['Outcome'] for r in rows))}, mean Total Reward "
+          f"{csv_mean!r} against the summary's {res['mean_reward']!r}")
+    check(len(rows) == 100 and all(r["Outcome"] == "Goal" for r in rows),
+          "the flagship's CSV is not 100 goals")
+    check(csv_mean == res["mean_reward"],
+          "the CSV's returns are not the summary's")
 
 
 # ------------------------------------------------------------ phases 11-13
@@ -797,6 +834,94 @@ def phase_resume():
             print(f"[resume] {name}: {half} iterations and a --resume to "
                   f"{total} equal {total} straight, bit for bit "
                   f"({len(leaves)} tensors)")
+
+
+PIPE_SEED = 3101
+PIPE_ITERS = 2 * (ITERS + 2)   # 2 attempts: 3 stage-1, 2 polish iterations
+PIPE_ARGV = (POP_ARGV[:POP_ARGV.index("--polish-rounds")]
+             + ["--polish-rounds", "2",
+                "--checkpoint-every", str(ITERS * POP_B * 128)])
+PIPE_ARTIFACT = "artifacts/population/pipe5_s2101_population.json"
+
+
+def phase_pipeline(dev):
+    """The shipped pipeline, `acas2d_tpu_torch.pipeline.run_pipeline`, at a
+    cut budget into a temporary directory: stage 1 of the population
+    command at P = 32 x 1024 envs for 3 iterations (its eval fires in the
+    first), the re-eval cut to 64 episodes, two polish rounds of one
+    iteration at P = 16; a gate no policy reaches and two attempts, so the
+    escalation and the best-across-attempts pick both run.  The launch
+    counters are read around it (8 + 40 an iteration); 6 candidate dirs,
+    each stage 1 among them; the merge record in each polish stage; the
+    `_final` record with every key of the committed pipeline artifact; and
+    the strict eval's CSV, 100 rows equal to the exact eval's episodes of
+    the kept policy (outcome, and return to CSV_SUM_TOL)."""
+    from acas2d_tpu_torch import pipeline
+    from acas2d_tpu_torch.oracle import MersenneSpawner
+    from acas2d_tpu_torch.ppo import learner
+    from acas2d_tpu_torch.utils.params_io import load_flat_params
+    saved = {k: os.environ.get(k) for k in ("GATE", "MAX_ATTEMPTS")}
+    os.environ.update(GATE="1e9", MAX_ATTEMPTS="2")
+    with tempfile.TemporaryDirectory() as out:
+        reset_counts()
+        try:
+            rec, ms = synced_ms(lambda: pipeline.run_pipeline(
+                PIPE_SEED, "smoke", PIPE_ARGV, out, device=dev.type))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        launches = read_counts()
+        print(f"[pipeline] launches over {PIPE_ITERS} iterations (2 "
+              f"attempts: {ITERS} at P={POP}, 2 polish at P={POLISH_POP}): "
+              f"{launches}; wall {ms / 1e3:.2f} s")
+        check(launches == expected(policy_rollout=8 * PIPE_ITERS,
+                                   ppo_grads=40 * PIPE_ITERS))
+        names = [f"smoke_s{PIPE_SEED}", f"smoke_s{PIPE_SEED}_esc1"]
+        check(rec["attempts"] == 2 and rec["dirs"] == [
+            os.path.join(out, n + p) for n in names
+            for p in ("", "_polish", "_polish_polish")],
+            f"attempts {rec['attempts']}, dirs {rec['dirs']}")
+        records = {}
+        for d in rec["dirs"]:
+            with open(os.path.join(d, "population.json")) as f:
+                records[d] = json.load(f)
+            merged = {"stage1", "pipeline"} <= set(records[d])
+            check(merged == d.endswith("_polish"),
+                  f"{d}: merge keys {merged}")
+        with open(os.path.join(rec["final"], "population.json")) as f:
+            final = json.load(f)
+        with open(PIPE_ARTIFACT) as f:
+            missing = set(json.load(f)) - set(final)
+        check(not missing and final["attempts"] == 2
+              and final["best_of_chain"] == rec["best_dir"],
+              f"final record: missing {missing}")
+        print(f"[pipeline] kept {os.path.basename(rec['best_dir'])} "
+              f"(score {rec['best_score']:.2f}); polish labels "
+              f"{records[rec['dirs'][1]]['pipeline']}")
+        rows = read_csv(os.path.join(rec["final"], "eval_100_exact.csv"))
+        params, _ = load_flat_params(os.path.join(rec["final"],
+                                                  "selected_best.npz"))
+        ep = learner.exact_episodes(
+            params.to(dev), DEFAULT_PARAMS,
+            MersenneSpawner(DEFAULT_PARAMS, skip_episodes=2), 100,
+            torch.float64, dev)
+        outcome = ep["outcome"].cpu().numpy()
+        ret = ep["return"].cpu().numpy()
+        check(len(rows) == 100, f"{len(rows)} CSV rows")
+        for b, r in enumerate(rows):
+            check(r["Outcome"] == OUTCOME_NAMES.get(int(outcome[b]))
+                  and abs(float(r["Total Reward"]) - float(ret[b]))
+                  < CSV_SUM_TOL,
+                  f"CSV episode {b + 1}: {r['Outcome']} "
+                  f"{r['Total Reward']} against {int(outcome[b])} "
+                  f"{float(ret[b])!r}")
+        print(f"[pipeline] strict eval CSV of the kept policy: 100 rows "
+              f"equal to the exact eval's; mean "
+              f"{float(np.mean(ret)):.4f}, goals {int((outcome == 1).sum())}"
+              f"/100; training wall {final['training_wall_s']} s")
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1371,6 +1496,7 @@ def main() -> int:
     phase_greedy_graphs()
     phase_solo_run()
     phase_resume()
+    phase_pipeline(dev)
     cu, pt = "acas2d_tpu_torch/csrc/", "acas2d_tpu/ops/"
     rows = [
         ("policy_rollout", time_rollout,

@@ -8,11 +8,13 @@ the population std of the same returns (71.68), which the port reports as
 `std_reward`.  The weights are carried across from the committed npz
 (utils/params_io.from_jax_params)."""
 
+import csv
 import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -20,7 +22,7 @@ NPZ = os.path.join(ROOT, "artifacts", "ppo_tpu_e_polished_best.npz")
 RECORD = os.path.join(ROOT, "artifacts", "ppo_tpu_e_polished_best.json")
 
 
-def test_exact_eval_reproduces_flagship_record():
+def test_exact_eval_reproduces_flagship_record(tmp_path):
     with open(RECORD) as f:
         rec = json.load(f)["strict_100ep"]
     # one thread: 100 envs are too few for intra-op threads to pay, and the
@@ -28,7 +30,8 @@ def test_exact_eval_reproduces_flagship_record():
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "acas2d_tpu_torch.eval", "--params-npz", NPZ,
-         "--exact", "--episodes", "100", "--device", "cpu"],
+         "--exact", "--episodes", "100", "--out",
+         str(tmp_path / "eval_100.csv"), "--device", "cpu"],
         cwd=ROOT, env=env, capture_output=True, text=True, check=True,
         timeout=600)
     res = json.loads(out.stdout.strip().splitlines()[-1])
@@ -40,6 +43,14 @@ def test_exact_eval_reproduces_flagship_record():
     # one line per episode on stderr, as the JAX driver prints them
     assert len([l for l in out.stderr.splitlines()
                 if l.startswith("Episode")]) == 100
+    # the episode CSV: 100 rows, whose returns the summary averages (up to
+    # the order of the sums)
+    with open(tmp_path / "eval_100.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 100
+    assert all(r["Outcome"] == "Goal" for r in rows)
+    assert abs(np.mean([float(r["Total Reward"]) for r in rows])
+               - res["mean_reward"]) < 1e-9
 
 
 def test_eval_needs_cuda_unless_asked_for_cpu():

@@ -54,8 +54,10 @@ def run_dir(tmp_path_factory):
     return out / "r"
 
 
-def _eval(argv):
+def _eval(argv, out):
+    """The exact eval of 3 episodes, its episode CSV written to `out`."""
     return teval.run(teval.parse_args(argv + ["--episodes", "3", "--exact",
+                                              "--out", str(out),
                                               "--device", "cpu"]))
 
 
@@ -74,11 +76,13 @@ def test_run_checkpoint_scores_as_its_params_npz(which, run_dir, tmp_path,
     npz = str(tmp_path / "p.npz")
     save_params_npz(npz, flat_to_tree(raw["params"]))
     capsys.readouterr()
-    got = _eval(["--run", str(run_dir)] + which)
+    got = _eval(["--run", str(run_dir)] + which, tmp_path / "run.csv")
     assert (f"loaded checkpoint (iteration {raw['iteration']})"
             in capsys.readouterr().err)
-    want = _eval(["--params-npz", npz])
+    want = _eval(["--params-npz", npz], tmp_path / "npz.csv")
     assert got == want
+    assert ((tmp_path / "run.csv").read_bytes()
+            == (tmp_path / "npz.csv").read_bytes())
     assert got["goals"] + got["collisions"] + got["timeouts"] == 3
 
 
@@ -105,7 +109,7 @@ def test_population_checkpoint_is_refused(tmp_path):
     mgr.save(B, learner.state_to_dict(
         population.init_population(cfg, DEFAULT_PARAMS, 2, "cpu")))
     with pytest.raises(ValueError, match="population run"):
-        _eval(["--run", str(tmp_path)])
+        _eval(["--run", str(tmp_path)], tmp_path / "eval.csv")
 
 
 @pytest.mark.parametrize("argv", [["--run", "d", "--params-npz", "p"],

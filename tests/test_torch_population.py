@@ -310,6 +310,16 @@ def test_population_driver_writes_jax_readable_artifacts(tmp_path, capsys):
         run_dir = tmp_path / stage
         with open(run_dir / "population.json") as f:
             summary = json.load(f)
+        # the polish stage's record gains the pipeline-level keys (JAX
+        # scripts/population_merge.py); summary.json keeps the stage's own
+        merged = summary.pop("stage1", None), summary.pop("pipeline", None)
+        if stage == "pop_polish":
+            with open(tmp_path / "pop" / "population.json") as f:
+                assert merged[0] == json.load(f)
+            assert merged[1] == ["stage1_population2_rollpacked",
+                                 "reval4_risk_adjusted", "polish_population3"]
+        else:
+            assert merged == (None, None)
         assert summary["population"] == pop
         assert summary["selected_by"] == "final_reval"
         assert summary["risk_adjusted_selection"] is True
@@ -325,7 +335,8 @@ def test_population_driver_writes_jax_readable_artifacts(tmp_path, capsys):
         assert stack_n == n_top and flat.shape == (n_top, N_PARAMS)
         res = teval.run(teval.parse_args(
             ["--params-npz", str(run_dir / "selected_best.npz"), "--exact",
-             "--episodes", "2", "--device", "cpu"]))
+             "--episodes", "2", "--out", str(run_dir / "eval_2.csv"),
+             "--device", "cpu"]))
         assert res["episodes"] == 2 and np.isfinite(res["mean_reward"])
     err = capsys.readouterr().err
     assert "round-robin from 2 lineages" in err     # the polish warm start
