@@ -23,10 +23,13 @@ steps/s (`clock.tick(FPS)`, the JAX bench's REFERENCE_STEPS_PER_S).
 times `iters` chained launches and ends in a host transfer of the last
 stats, which cannot complete before the launches that produce them.
 
-`--train` measures one PPO iteration per call at the `tpu` preset shape
-(2048 envs x 128 steps, minibatch 65,536) for the variants the port has:
-`fused_rollout+update` and `fused_rollout+update_bf16`.  The JAX variants
-it lacks are listed under `not_ported` with their ROADMAP item.
+`--train` measures PPO training at the `tpu` preset shape (2048 envs x 128
+steps, minibatch 65,536) for the variants the port has: one iteration a
+call, `fused_rollout+update` and `fused_rollout+update_bf16`, and 32
+iterations a call (`learner.make_train_loop`, replays of a captured
+iteration on the card), `fused_rollout+update+loop32` and
+`fused_rollout+update_bf16+loop32`.  The JAX variants it lacks are listed
+under `not_ported` with their ROADMAP item.
 `--multi-traffic N` measures the general engine (`envs/core.py`, eager
 torch) at max_traffic N against 1, as the JAX bench does.
 
@@ -69,11 +72,14 @@ SEED = 7
 NOT_PORTED = {
     "xla": "A5b (unfused rollout and autograd update)",
     "fused_rollout": "A5b (autograd update)",
-    "fused_rollout+loop32": "A5b, A6b (autograd update; --iters-per-call)",
-    "fused_rollout+update+loop32": "A6b (--iters-per-call)",
-    "fused_rollout+update_bf16+loop32": "A6b (--iters-per-call)",
-    "best_case_4096": "A5b, A6b (fused_rollout+loop32 at 4096 envs)",
+    "fused_rollout+loop32": "A5b (autograd update)",
+    "best_case_4096": "A5b (fused_rollout+loop32 at 4096 envs)",
 }
+# the --train variants: (label, bf16 update, iterations a call)
+TRAIN_VARIANTS = (("fused_rollout+update", False, 1),
+                  ("fused_rollout+update_bf16", True, 1),
+                  ("fused_rollout+update+loop32", False, 32),
+                  ("fused_rollout+update_bf16+loop32", True, 32))
 
 
 def device_label(dev: torch.device) -> str:
@@ -157,11 +163,14 @@ def measure(B: int = 262144, T: int = 256, iters: int = 8, repeats: int = 3,
 
 def measure_train_at(n_envs: int, n_steps: int, iters: int = 2,
                      repeats: int = 2, bf16_update: bool = False,
-                     minibatch: int = 0, device=None) -> float:
-    """One PPO iteration per call (fused rollout + GAE + 10 epochs of fused
-    minibatch gradients and Adam) through `learner.make_train_step`; best
-    env-steps/s of `repeats` runs of `iters` iterations
-    (bench.py:measure_train_at on one device, loop_k 1)."""
+                     minibatch: int = 0, loop_k: int = 1,
+                     device=None) -> float:
+    """PPO training (fused rollout + GAE + 10 epochs of fused minibatch
+    gradients and Adam): one iteration a call through
+    `learner.make_train_step`, or `loop_k` > 1 a call through
+    `learner.make_train_loop`; best env-steps/s of `repeats` runs of
+    `iters` calls, after one call (bench.py:measure_train_at on one
+    device)."""
     from acas2d_tpu_torch.ppo import learner
     from acas2d_tpu_torch.ppo.config import PPOConfig
 
@@ -175,19 +184,22 @@ def measure_train_at(n_envs: int, n_steps: int, iters: int = 2,
                     total_timesteps=batch, fused_rollout=True,
                     fused_chunk=min(16, n_steps), fused_update=True,
                     fused_update_bf16=bf16_update)
-    step = learner.make_train_step(cfg, DEFAULT_PARAMS, dev)
+    if loop_k > 1:
+        step = learner.make_train_loop(cfg, DEFAULT_PARAMS, loop_k, dev)
+    else:
+        step = learner.make_train_step(cfg, DEFAULT_PARAMS, dev)
     st = learner.init_train_state(cfg, DEFAULT_PARAMS, dev, seed=0)
     st, m = step(st)
-    if not math.isfinite(float(m["loss"])):
+    if not bool(torch.isfinite(m["loss"]).all()):
         raise RuntimeError("non-finite loss in the bench's train step")
     best = 0.0
     for _ in range(repeats):
         t0 = time.perf_counter()
         for _ in range(iters):
             st, m = step(st)
-        float(m["loss"])                    # host transfer = sync barrier
+        m["loss"].cpu()                     # host transfer = sync barrier
         dt = (time.perf_counter() - t0) / iters
-        best = max(best, batch / dt)
+        best = max(best, batch * loop_k / dt)
     return best
 
 
@@ -196,11 +208,10 @@ def train_main(args) -> Dict:
     (bench.py:train_main) for the variants the port has."""
     dev = resolve_device(args.device)
     rows = {}
-    for label, bf16 in (("fused_rollout+update", False),
-                        ("fused_rollout+update_bf16", True)):
+    for label, bf16, loop_k in TRAIN_VARIANTS:
         rows[label] = round(measure_train_at(
             args.train_envs, args.train_steps, bf16_update=bf16,
-            minibatch=args.train_minibatch, device=dev), 1)
+            minibatch=args.train_minibatch, loop_k=loop_k, device=dev), 1)
     best = max(rows.values())
     return {
         "metric": "end-to-end PPO training env-steps/s at the shipped tpu "

@@ -288,9 +288,10 @@ __device__ __forceinline__ void store_state(float* s, int rows,
 
 template <int MT>
 __global__ void __launch_bounds__(32 * MAX_WARPS) policy_rollout_kernel(
-    const RolloutConsts c, int B, int K, uint32_t seed, int step_offset,
-    const float* __restrict__ params, const float* __restrict__ st_in,
-    const int* __restrict__ steps_in, const float* __restrict__ obs_in,
+    const RolloutConsts c, int B, int K, const int* __restrict__ seed,
+    int step_offset, const float* __restrict__ params,
+    const float* __restrict__ st_in, const int* __restrict__ steps_in,
+    const float* __restrict__ obs_in,
     float* __restrict__ st_out, int* __restrict__ steps_out,
     float* __restrict__ obs_out, float* __restrict__ obs_buf,
     float* __restrict__ fbuf, int* __restrict__ ibuf) {
@@ -415,7 +416,7 @@ __global__ void __launch_bounds__(32 * MAX_WARPS) policy_rollout_kernel(
     if (stepper && active) {
       EnvState v = load_state(st_s, ROWS);
       const int step_id = step_offset + i;
-      const uint32_t base = seed * 0x9E3779B9u
+      const uint32_t base = (uint32_t)__ldg(seed) * 0x9E3779B9u
                           + (uint32_t)(e >> 10) * 0xC2B2AE35u
                           + (uint32_t)(e & 1023) * 0x27D4EB2Fu;
       // gaussian sample (SB3 collect_rollouts)
@@ -528,12 +529,25 @@ __global__ void __launch_bounds__(32 * MAX_WARPS) policy_rollout_kernel(
   }
 }
 
+// Lets policy_rollout_kernel<MT> take `smem` bytes of dynamic shared
+// memory.  The attribute is set when a launch first needs more than the
+// largest size set so far, and not again: an eager launch before a CUDA
+// graph's capture sets it, and the capture records no attribute call.
+template <int MT>
+cudaError_t allow_smem(int smem) {
+  static int allowed = 0;
+  if (smem <= allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      policy_rollout_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err == cudaSuccess) allowed = smem;
+  return err;
+}
+
 template <int MT>
 cudaError_t attrs(int w, int* out) {
   const int smem = smem_bytes(MT, w);
-  cudaError_t err = cudaFuncSetAttribute(
-      policy_rollout_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t err = allow_smem<MT>(smem);
   cudaFuncAttributes a = {};
   if (err == cudaSuccess)
     err = cudaFuncGetAttributes(&a, policy_rollout_kernel<MT>);
@@ -549,16 +563,14 @@ cudaError_t attrs(int w, int* out) {
 }
 
 template <int MT>
-cudaError_t launch(const RolloutConsts& c, int P, int B, int K, uint32_t seed,
-                   int step_offset, int w, const float* params,
-                   const float* st_in, const int* steps_in,
-                   const float* obs_in, float* st_out, int* steps_out,
-                   float* obs_out, float* obs_buf, float* fbuf, int* ibuf,
-                   cudaStream_t stream) {
+cudaError_t launch(const RolloutConsts& c, int P, int B, int K,
+                   const int* seed, int step_offset, int w,
+                   const float* params, const float* st_in,
+                   const int* steps_in, const float* obs_in, float* st_out,
+                   int* steps_out, float* obs_out, float* obs_buf,
+                   float* fbuf, int* ibuf, cudaStream_t stream) {
   const int smem = smem_bytes(MT, w);
-  cudaError_t err = cudaFuncSetAttribute(
-      policy_rollout_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  const cudaError_t err = allow_smem<MT>(smem);
   if (err != cudaSuccess) return err;
   const int tiles = (B + 16 * MT - 1) / (16 * MT);
   const dim3 grid((tiles + w - 1) / w, P);
@@ -592,10 +604,13 @@ int acas_policy_rollout_attrs(int mt, int w, int* out) {
 // px, py, psi, tx, ty, tv, tpsi, total_reward; st_out (9, PB) adds the
 // live a_lat.  obs_in / obs_out (PB, 8); obs_buf (K, PB, 8); fbuf (6, K,
 // PB): action, logp, value, reward, done, episode_return; ibuf (2, K, PB):
-// episode_steps, outcome.  Returns the launch's cudaGetLastError() (or
-// the error of setting its shared memory size).
+// episode_steps, outcome.  The kernel reads the RNG seed (its int32 bit
+// pattern) from device memory, seed[0], so that a CUDA graph's replay
+// takes the seed its caller wrote there; step_offset, the same at every
+// replay, is a value.  Returns the launch's cudaGetLastError() (or the
+// error of setting its shared memory size).
 int acas_policy_rollout(const acas::RolloutConsts* c, int P, int B, int K,
-                        int seed, int step_offset, int mt, int w,
+                        const int* seed, int step_offset, int mt, int w,
                         const float* params, const float* st_in,
                         const int* steps_in, const float* obs_in,
                         float* st_out, int* steps_out, float* obs_out,
@@ -603,14 +618,18 @@ int acas_policy_rollout(const acas::RolloutConsts* c, int P, int B, int K,
                         void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (mt == 1)
-    return (int)launch<1>(*c, P, B, K, (uint32_t)seed, step_offset, w,
+    return (int)launch<1>(*c, P, B, K, seed, step_offset, w,
                           params, st_in, steps_in, obs_in, st_out, steps_out,
                           obs_out, obs_buf, fbuf, ibuf, s);
   if (mt == 2)
-    return (int)launch<2>(*c, P, B, K, (uint32_t)seed, step_offset, w,
+    return (int)launch<2>(*c, P, B, K, seed, step_offset, w,
                           params, st_in, steps_in, obs_in, st_out, steps_out,
                           obs_out, obs_buf, fbuf, ibuf, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// Marks the interface above, whose seed is a device pointer (builds of an
+// earlier source take it as a value and lack this symbol).
+int acas_policy_rollout_reads_seed(void) { return 1; }
 
 }  // extern "C"

@@ -618,10 +618,16 @@ size_t partials_smem(int bf16) {
          * sizeof(float);
 }
 
+// Sets that attribute once a variant: an eager launch before a CUDA
+// graph's capture sets it, and the capture records no attribute call.
 cudaError_t set_partials_smem(int bf16) {
-  return cudaFuncSetAttribute(partials_kernel(bf16),
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)partials_smem(bf16));
+  static bool set[2] = {false, false};
+  if (set[bf16 != 0]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      partials_kernel(bf16), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)partials_smem(bf16));
+  if (err == cudaSuccess) set[bf16 != 0] = true;
+  return err;
 }
 
 }  // namespace

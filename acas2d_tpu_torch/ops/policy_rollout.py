@@ -17,13 +17,16 @@ The wrapper launches the CUDA kernel (`csrc/policy_rollout.cu`) for CUDA
 tensors and runs the plain version (`_rollout_plain`, the same per-step
 arithmetic in torch over the batch) for CPU tensors.  There is no fallback
 between the two.  `fused_policy_rollout_members.launches` counts the
-kernel's launches, solo or member.  The kernel's launch shape (env rows a
-warp, tiles a block) comes from `launch_shape`; it changes no output bit.
+kernel's launches, solo or member (the replays of a captured training
+iteration are counted by the loop that replays them,
+`learner.make_train_loop`).  The kernel's launch shape (env rows a warp,
+tiles a block) comes from `launch_shape`; it changes no output bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import re
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -183,16 +186,45 @@ def launch_shape(P: int, B: int, sms: int) -> Tuple[int, int]:
     return mt, w
 
 
+def seed_int32(seed) -> int:
+    """The int32 bit pattern of a seed, which the kernel hashes."""
+    return ((int(seed) + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+@functools.lru_cache(maxsize=8)
+def _seed_on(seed32: int, device: torch.device) -> torch.Tensor:
+    """A (1,) int32 tensor on `device` holding a seed: an int seed's
+    device copy, made once, so that repeated launches from an int (the
+    A/B tools' and the checks') copy nothing to the card and do not
+    synchronise with it.  Nothing writes it."""
+    return torch.tensor([seed32], dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def reads_seed(lib: ctypes.CDLL) -> bool:
+    """Whether a build's entry point reads the seed from device memory (an
+    earlier source's takes it as a value)."""
+    return hasattr(lib, "acas_policy_rollout_reads_seed")
+
+
 def _rollout_cuda(c: Dict[str, float], max_steps: int, st: torch.Tensor,
                   steps: torch.Tensor, obs: torch.Tensor,
-                  params: torch.Tensor, seed: int, step_offset: int, K: int,
+                  params: torch.Tensor, seed, step_offset: int, K: int,
                   lib: Optional[ctypes.CDLL] = None,
                   shape: Optional[Tuple[int, ...]] = None):
     """Launch csrc/policy_rollout.cu; same operands/outputs as
-    _rollout_plain.  `lib`: another build of a source with the same C
-    interface (the A/B tool's); `shape`: the launch-shape arguments of its
-    entry point, (MT, W), by default `launch_shape` on this card's SMs (an
-    entry point without them takes ())."""
+    _rollout_plain.  `seed`: an int, or a (1,) int32 tensor on the card
+    holding its bit pattern, which the kernel reads when it runs (a CUDA
+    graph's replays read what was written there last).  `lib`: another
+    build of a source with the same C interface (the A/B tool's), whose
+    entry point may take the seed as a value (`reads_seed`); `shape`: the
+    launch-shape arguments of its entry point, (MT, W), by default
+    `launch_shape` on this card's SMs (an entry point without them takes
+    ())."""
     P, PB = params.shape[0], st.shape[1]
     _cuda.require(params, "params", torch.float32, (P, N_PARAMS))
     _cuda.require(st, "state", torch.float32, (8, PB))
@@ -202,12 +234,18 @@ def _rollout_cuda(c: Dict[str, float], max_steps: int, st: torch.Tensor,
     _cuda.require(obs, "obs", torch.float32, (PB, 8))
     lib = lib or _cuda.load("policy_rollout")
     if shape is None:
-        shape = launch_shape(P, PB // P, torch.cuda.get_device_properties(
-            st.device).multi_processor_count)
+        shape = launch_shape(P, PB // P, _sms(st.device))
+    if not reads_seed(lib):
+        seed_arg = ctypes.c_int(seed_int32(seed))
+    elif torch.is_tensor(seed):
+        _cuda.require(seed, "seed", torch.int32, (1,))
+        seed_arg = _cuda.ptr(seed)
+    else:
+        seed_arg = _cuda.ptr(_seed_on(seed_int32(seed), st.device))
     fn = lib.acas_policy_rollout
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.POINTER(_RolloutConsts)]
-                   + [ctypes.c_int] * (5 + len(shape))
+    fn.argtypes = ([ctypes.POINTER(_RolloutConsts)] + [ctypes.c_int] * 3
+                   + [type(seed_arg)] + [ctypes.c_int] * (1 + len(shape))
                    + [ctypes.c_void_p] * 11)
     dev = st.device
     st_out = torch.empty(9, PB, dtype=torch.float32, device=dev)
@@ -217,9 +255,7 @@ def _rollout_cuda(c: Dict[str, float], max_steps: int, st: torch.Tensor,
     fbuf = torch.empty(6, K, PB, dtype=torch.float32, device=dev)
     ibuf = torch.empty(2, K, PB, dtype=torch.int32, device=dev)
     consts = _RolloutConsts(**c, max_steps=max_steps)
-    # the kernel takes the seed's int32 bit pattern
-    seed32 = ((int(seed) + (1 << 31)) % (1 << 32)) - (1 << 31)
-    rc = fn(ctypes.byref(consts), P, PB // P, K, seed32, int(step_offset),
+    rc = fn(ctypes.byref(consts), P, PB // P, K, seed_arg, int(step_offset),
             *shape, _cuda.ptr(params), _cuda.ptr(st), _cuda.ptr(steps),
             _cuda.ptr(obs), _cuda.ptr(st_out), _cuda.ptr(steps_out),
             _cuda.ptr(obs_out), _cuda.ptr(obs_buf), _cuda.ptr(fbuf),
@@ -277,7 +313,7 @@ def sass_census(lib_file: Optional[Path] = None
 
 def fused_policy_rollout_members(state: Dict[str, torch.Tensor],
                                  obs: torch.Tensor, params: torch.Tensor,
-                                 seed: int, step_offset: int, K: int,
+                                 seed, step_offset: int, K: int,
                                  env_params: EnvParams = DEFAULT_PARAMS
                                  ) -> Tuple[Dict[str, torch.Tensor],
                                             Dict[str, torch.Tensor]]:
@@ -291,7 +327,10 @@ def fused_policy_rollout_members(state: Dict[str, torch.Tensor],
     last applied lateral acceleration, 0 for envs respawned on their final
     step —, buffers with time-major (K, P, B) leaves and obs (K, P, B, 8)).
     The JAX wrapper returns its buffers member-major, (P, K, B); the port
-    keeps the kernel's layout, which is the learner's.  `step_offset`
+    keeps the kernel's layout, which is the learner's.  `seed`: an int, or
+    a (1,) int32 tensor on the state's device holding its bit pattern
+    (the kernel reads it from device memory, so a CUDA graph's replays
+    take a new seed; the plain version reads its value).  `step_offset`
     advances the per-step RNG counter across chunked launches.
     """
     P, B = state["px"].shape
@@ -301,7 +340,11 @@ def fused_policy_rollout_members(state: Dict[str, torch.Tensor],
     steps = state["steps"].to(torch.int32).reshape(P * B).contiguous()
     obs = obs.to(torch.float32).reshape(P * B, 8).contiguous()
     params = params.contiguous()
-    fn = _rollout_cuda if st.is_cuda else _rollout_plain
+    if st.is_cuda:
+        fn = _rollout_cuda
+    else:
+        fn = _rollout_plain
+        seed = int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else seed
     st_out, steps_out, obs_out, obs_buf, fbuf, ibuf = fn(
         c, env_params.max_steps, st, steps, obs, params, seed, step_offset, K)
     st_out = st_out.view(9, P, B)
@@ -315,7 +358,7 @@ def fused_policy_rollout_members(state: Dict[str, torch.Tensor],
 
 
 def fused_policy_rollout(state: Dict[str, torch.Tensor], obs: torch.Tensor,
-                         params: torch.Tensor, seed: int, step_offset: int,
+                         params: torch.Tensor, seed, step_offset: int,
                          K: int, env_params: EnvParams = DEFAULT_PARAMS
                          ) -> Tuple[Dict[str, torch.Tensor],
                                     Dict[str, torch.Tensor]]:

@@ -34,12 +34,13 @@ The wrapper launches the CUDA kernel (`csrc/ppo_grads.cu`) for CUDA tensors
 and runs the plain version (`_grads_plain`, the same forward and backward
 in torch, member by member) for CPU tensors.  There is no fallback between
 the two.  `ppo_minibatch_grads_members.launches` counts the kernel's
-launches, solo or member.  The kernel runs its products on the tensor
-cores: without `bf16` as 3xTF32 (each float32 operand split into two TF32
-parts), which keeps them close to float32 (on the card every gradient block
-agrees with the plain version within 4e-5 of its largest entry); with
-`bf16` as one bf16 product each, on operands rounded once as the plain
-version rounds them.
+launches, solo or member (a captured training iteration's replays are
+counted by `learner.make_train_loop`).  The kernel runs its products on
+the tensor cores: without `bf16` as 3xTF32 (each float32 operand split
+into two TF32 parts), which keeps them close to float32 (on the card
+every gradient block agrees with the plain version within 4e-5 of its
+largest entry); with `bf16` as one bf16 product each, on operands
+rounded once as the plain version rounds them.
 """
 
 from __future__ import annotations

@@ -72,8 +72,9 @@ def stage_dirs(stage1_argv: Sequence[str], out_dir: str,
 
 def wall_by_part(stage_dir: str) -> Dict[str, float]:
     """Where one stage's wall went, from its run dir: the iterations (the
-    rows' `seconds` in train.jsonl; the first, which builds and warms up,
-    also apart), the evals (`eval_seconds` in eval.jsonl), and the rest of
+    rows' `seconds` in train.jsonl, each its call's time over the call's
+    iterations; the first, whose call builds and warms up, also apart),
+    the evals (`eval_seconds` in eval.jsonl), and the rest of
     the stage's `total_wall_s` (summary.json: checkpoints, the end-of-run
     re-eval, selection)."""
     def rows(name):

@@ -5,7 +5,8 @@
 
 Builds the package's source ("kernel"), each named variant of it (the
 package's policy_rollout.cu and headers with one part taken out by a text
-edit: its results are wrong, only its time counts) and each other source
+edit: its results are wrong, only its time counts; or, `seed_by_value`,
+with the seed a kernel argument again: the same bits) and each other source
 directory given (a parent commit's csrc/, unpacked with `git archive`: its
 policy_rollout.cu against its own headers), one nvcc each, all at once
 (`ab.build`).  Then, at both main-path shapes (solo: P = 1, B = 2048;
@@ -26,8 +27,9 @@ members: P = 32, B = 1024; K = 16, chip_smoke.py's operands):
   by kind (`policy_rollout.sass_census`) and, where the build has the
   entry point, its dynamic shared memory and blocks an SM at each shape.
 
-A source whose entry point takes no launch shape (the parent's) is
-launched without one.  It prints one JSON line: the card's name and power
+A source whose entry point takes no launch shape (an earlier parent's) is
+launched without one, and one that takes the seed as a value
+(`policy_rollout.reads_seed`) with the seed's value.  It prints one JSON line: the card's name and power
 limit, its SM clocks and SM count, and the readings.
 """
 
@@ -61,6 +63,17 @@ VARIANTS = {
     "no_env_step": [("policy_rollout.cu",
                      "if (stepper && active) {\n      EnvState v",
                      "if (false) {\n      EnvState v")],
+    # the seed as a kernel argument, as before it was read from device
+    # memory: the same bits, its time beside the kernel's
+    "seed_by_value": [
+        ("policy_rollout.cu", "int K, const int* __restrict__ seed,",
+         "int K, uint32_t seed,"),
+        ("policy_rollout.cu", "(uint32_t)__ldg(seed) * 0x9E3779B9u",
+         "seed * 0x9E3779B9u"),
+        ("policy_rollout.cu", "const int* seed, int step_offset, int",
+         "int seed, int step_offset, int"),
+        ("policy_rollout.cu",
+         "int acas_policy_rollout_reads_seed(void) { return 1; }\n", "")],
 }
 SHAPES = {"solo": (1, 2048), "members": (32, 1024)}
 # other launch shapes (MT, W) of the package's build, timed beside its own

@@ -25,6 +25,12 @@ update as the fused one here.  Randomness comes from the TrainState's explicit
 per epoch.  A caller may pass both (`seed=`, `perms=`) to replay another
 run's draws — the parity tests pass the draws the JAX learner derives from
 its key.
+
+`make_train_loop` runs K iterations a call (JAX `make_train_loop`, train.py
+--iters-per-call): on the card as K replays of one iteration captured as a
+CUDA graph, whose draws and Adam scalars the host makes before the replays
+and the graph reads from device memory; on the CPU as K eager steps.
+Either equals K eager steps bit for bit.
 """
 
 from __future__ import annotations
@@ -41,7 +47,9 @@ from acas2d_tpu_torch.envs import core, vector
 from acas2d_tpu_torch.models.actor_critic import (ActorCritic, apply_flat,
                                                   flatten, members_forward)
 from acas2d_tpu_torch.oracle import MersenneSpawner
-from acas2d_tpu_torch.ops.policy_rollout import fused_policy_rollout
+from acas2d_tpu_torch.ops import policy_rollout, ppo_grads
+from acas2d_tpu_torch.ops.policy_rollout import (fused_policy_rollout,
+                                                 seed_int32)
 from acas2d_tpu_torch.ops.ppo_grads import ppo_minibatch_grads_members
 from acas2d_tpu_torch.ppo.config import PPOConfig
 from acas2d_tpu_torch.ppo.gae import compute_gae
@@ -96,7 +104,14 @@ class Optimizer:
     max_norm / g_norm only when g_norm >= max_norm (no epsilon), Adam's
     denominator is sqrt(nu_hat) + eps, bias corrections are computed in
     float64 and rounded to float32, and the optional linear LR anneal is
-    optax.linear_schedule(lr, 0, total_updates) on the pre-step count."""
+    optax.linear_schedule(lr, 0, total_updates) on the pre-step count.
+
+    A step's scalars (both bias corrections and the negated step size) come
+    as a float32 tensor on the gradients' device (`scalars`), so that a
+    CUDA graph's replay takes each step's own, and the moments are divided
+    by them as tensors: a true division, as optax's `mu / (1 - b1**count)`
+    (PyTorch's CUDA division by a Python number multiplies by its
+    reciprocal, which can differ by an ulp)."""
 
     def __init__(self, cfg: PPOConfig, b1: float = 0.9, b2: float = 0.999):
         self.max_norm = cfg.max_grad_norm
@@ -116,22 +131,35 @@ class Optimizer:
         frac = 1.0 - min(max(count, 0), self.total_updates) / self.total_updates
         return self.lr * frac
 
-    def update(self, grads: torch.Tensor, state: AdamState
+    def scalars(self, count: int, n: int) -> torch.Tensor:
+        """The scalars of the n steps from Adam count `count` on, (n, 3)
+        float32 on the CPU: each step's bias corrections 1 - b1**c and
+        1 - b2**c (c its post-step count) and its negated step size, in
+        float64, rounded to float32."""
+        return torch.tensor(
+            [(1 - self.b1 ** (c + 1), 1 - self.b2 ** (c + 1),
+              -self.step_size(c)) for c in range(count, count + n)],
+            dtype=torch.float64).view(n, 3).to(torch.float32)
+
+    def update(self, grads: torch.Tensor, state: AdamState,
+               scalars: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, AdamState]:
         """One step on (..., N_PARAMS) gradients; each row (a population's
-        member) is clipped by its own global norm."""
+        member) is clipped by its own global norm.  `scalars`: this step's
+        row of `scalars(state.count, ...)` on the gradients' device (by
+        default made here)."""
+        if scalars is None:
+            scalars = self.scalars(state.count, 1)[0].to(grads.device)
         g_norm = torch.sqrt(torch.sum(grads * grads, dim=-1, keepdim=True))
         grads = torch.where(g_norm < self.max_norm, grads,
                             (grads / g_norm) * self.max_norm)
         b1, b2 = self.b1, self.b2
         mu = (1 - b1) * grads + b1 * state.mu
         nu = (1 - b2) * (grads * grads) + b2 * state.nu
-        count = state.count + 1
-        mu_hat = mu / float(np.float32(1 - b1 ** count))
-        nu_hat = nu / float(np.float32(1 - b2 ** count))
-        updates = -self.step_size(state.count) * (
-            mu_hat / (torch.sqrt(nu_hat) + self.eps))
-        return updates, AdamState(mu=mu, nu=nu, count=count)
+        mu_hat = mu / scalars[0]
+        nu_hat = nu / scalars[1]
+        updates = scalars[2] * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
+        return updates, AdamState(mu=mu, nu=nu, count=state.count + 1)
 
 
 def init_train_state(cfg: PPOConfig, env_params: EnvParams, device=None,
@@ -225,19 +253,17 @@ def _state_shapes(state) -> Dict[str, int]:
 # ---------------------------------------------------------------- rollout
 
 def collect_rollout_fused(model: ActorCritic, state: TrainState,
-                          cfg: PPOConfig, env_params: EnvParams,
-                          seed: Optional[int] = None
+                          cfg: PPOConfig, env_params: EnvParams, seed
                           ) -> Tuple[TrainState, RolloutBatch, torch.Tensor,
                                      Dict[str, torch.Tensor]]:
     """cfg.n_steps autoreset steps as n_steps / fused_chunk launches of the
-    fused rollout, one seed for all chunks and the step counter offset by
-    chunk.  Returns (state', batch, last_value, episode metrics)."""
+    fused rollout, one seed for all chunks (an int or a (1,) int32 tensor
+    on the state's device) and the step counter offset by chunk.  Returns
+    (state', batch, last_value, episode metrics)."""
     K = cfg.fused_chunk
     if cfg.n_steps % K:
         raise ValueError(f"n_steps {cfg.n_steps} not divisible by "
                          f"fused_chunk {K}")
-    if seed is None:
-        seed = int(torch.randint(0, INT32_MAX, (), generator=state.generator))
     es = state.env_state
     flat = dict(px=es.px, py=es.py, psi=es.ppsi, tx=es.tx[:, 0],
                 ty=es.ty[:, 0], tv=es.tv[:, 0], tpsi=es.tpsi[:, 0],
@@ -284,11 +310,29 @@ def collect_rollout_fused(model: ActorCritic, state: TrainState,
 
 # ----------------------------------------------------------------- update
 
+def as_perms(perms, members: int, n_blocks: int) -> torch.Tensor:
+    """Epoch permutations as one (E, P, n_blocks) int64 tensor: `perms` is
+    one already, or a sequence of per-epoch (P, n_blocks) or (n_blocks,)
+    arrays."""
+    if torch.is_tensor(perms):
+        return perms.reshape(-1, members, n_blocks)
+    return torch.stack([torch.tensor(np.asarray(p), dtype=torch.int64)
+                        .reshape(members, n_blocks) for p in perms])
+
+
+def draw_perms(cfg: PPOConfig, generators: Sequence[torch.Generator],
+               n_blocks: int) -> torch.Tensor:
+    """Each epoch's block permutation of every member from that member's
+    generator, epoch by epoch: (E, P, n_blocks) int64 on the CPU."""
+    return torch.stack([torch.stack([torch.randperm(n_blocks, generator=g)
+                                     for g in generators])
+                        for _ in range(cfg.n_epochs)])
+
+
 def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
                        optimizer: Optimizer, data: torch.Tensor,
-                       cfg: PPOConfig,
-                       generators: Optional[Sequence[torch.Generator]] = None,
-                       perms: Optional[Sequence] = None
+                       cfg: PPOConfig, perms,
+                       scalars: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, AdamState,
                                   Dict[str, torch.Tensor]]:
     """n_epochs x n_minibatches of clipped-PPO Adam steps (SB3 PPO.train)
@@ -296,23 +340,25 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
 
     `params` and the Adam moments are (P, N_PARAMS); `data` (P, N, 13).
     Each epoch permutes every member's contiguous blocks of
-    cfg.shuffle_block rows with that member's generator (block 1 is SB3's
-    row shuffle); `perms[e]` ((P, N / block) indices) replaces epoch e's
-    draws.  Every minibatch step of all members is one launch of the
-    gradient kernel, with bf16 operands under cfg.fused_update_bf16.  Metrics are (P,) means over the steps."""
+    cfg.shuffle_block rows (block 1 is SB3's row shuffle) by `perms`
+    (`as_perms`: (E, P, N / block) indices; `draw_perms` draws them from
+    the members' generators).  `scalars`, the steps' (E * M, 3) Adam
+    scalars (`Optimizer.scalars`) on the data's device, is by default made
+    from the Adam count.  Every minibatch step of all members is one
+    launch of the gradient kernel, with bf16 operands under
+    cfg.fused_update_bf16.  Metrics are (P,) means over the steps."""
     P, N = data.shape[:2]
     block = cfg.shuffle_block
-    blocks = data.view(P, N // block, block, data.shape[-1])
+    n_blocks = N // block
+    perms = as_perms(perms, P, n_blocks).to(data.device)
+    if scalars is None:
+        scalars = optimizer.scalars(
+            opt_state.count, cfg.n_epochs * cfg.n_minibatches).to(data.device)
+    blocks = data.view(P, n_blocks, block, data.shape[-1])
     members = torch.arange(P, device=data.device)[:, None]
     aux_all: Dict[str, List[torch.Tensor]] = {}
     for epoch in range(cfg.n_epochs):
-        if perms is not None:
-            perm = torch.as_tensor(np.asarray(perms[epoch]),
-                                   dtype=torch.int64).reshape(P, -1)
-        else:
-            perm = torch.stack([torch.randperm(N // block, generator=g)
-                                for g in generators])
-        mbs = blocks[members, perm.to(data.device)].view(
+        mbs = blocks[members, perms[epoch]].view(
             P, cfg.n_minibatches, cfg.minibatch_size, data.shape[-1])
         for j in range(cfg.n_minibatches):
             grads, aux = ppo_minibatch_grads_members(
@@ -320,7 +366,8 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
                 vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
                 normalize_advantage=cfg.normalize_advantage,
                 bf16=cfg.fused_update_bf16)
-            updates, opt_state = optimizer.update(grads, opt_state)
+            updates, opt_state = optimizer.update(
+                grads, opt_state, scalars[epoch * cfg.n_minibatches + j])
             params = params + updates
             for k, v in aux.items():
                 aux_all.setdefault(k, []).append(v)
@@ -331,13 +378,13 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
 def ppo_update(params: torch.Tensor, opt_state: AdamState,
                optimizer: Optimizer, batch: RolloutBatch,
                advantages: torch.Tensor, returns: torch.Tensor,
-               cfg: PPOConfig, generator: Optional[torch.Generator] = None,
-               perms: Optional[Sequence] = None
+               cfg: PPOConfig, perms, scalars: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, AdamState, Dict[str, torch.Tensor]]:
     """The solo update: `ppo_update_members` for one policy.
 
-    The six minibatch fields are folded into one (N, 13) matrix; `perms[e]`
-    (N / block indices) replaces epoch e's draw from `generator`."""
+    The six minibatch fields are folded into one (N, 13) matrix; `perms`
+    are the epochs' E x N / block indices (`as_perms`), `scalars` as in
+    `ppo_update_members`."""
     N = cfg.batch_size
     fields = (batch.obs, batch.actions, batch.log_probs, batch.values,
               advantages, returns)
@@ -346,8 +393,7 @@ def ppo_update(params: torch.Tensor, opt_state: AdamState,
     one = AdamState(mu=opt_state.mu[None], nu=opt_state.nu[None],
                     count=opt_state.count)
     params, one, metrics = ppo_update_members(
-        params[None], one, optimizer, data[None], cfg,
-        generators=[generator], perms=perms)
+        params[None], one, optimizer, data[None], cfg, perms, scalars)
     return (params[0], AdamState(mu=one.mu[0], nu=one.nu[0], count=one.count),
             {k: v[0] for k, v in metrics.items()})
 
@@ -366,26 +412,49 @@ def check_ported(cfg: PPOConfig) -> None:
             f"not ported yet: {', '.join(unsupported)}")
 
 
-def make_train_step(cfg: PPOConfig, env_params: EnvParams,
-                    device=None,
-                    on_phase: Optional[Callable[[str], None]] = None
-                    ) -> Callable:
-    """Returns train_step(state, seed=None, perms=None) -> (state, metrics):
-    one PPO iteration (fused rollout, GAE, epochs of fused-gradient Adam
-    steps).  Metrics are 0-dim tensors on the state's device.
-    `on_phase(name)`, when given, is called as each phase ends ("rollout",
-    "gae", "update"), so a caller can time the phases of this very step.
+def iteration_inputs(cfg: PPOConfig, state, n_iters: int, device,
+                     seed: Optional[int] = None, perms=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the next `n_iters` PPO iterations of `state` (a `TrainState`
+    or a `population.PopulationState`) take besides the state: the random
+    draws, in the order an eager step makes them (each iteration's
+    rollout seed from the first generator, then each epoch's block
+    permutation of every member from its own generator), and the Adam
+    steps' scalars from the state's Adam count on.  Returns (seeds
+    (n, 1) int32, perms (n, E, P, N / block) int64, scalars (n, E * M, 3)
+    float32), copied to `device` at once.  `seed` and `perms` (a
+    sequence of per-epoch arrays, see `as_perms`) replace one
+    iteration's draws: the parity tests pass the JAX step's."""
+    gens = state.generators
+    n_blocks = cfg.batch_size // cfg.shuffle_block
+    seeds, all_perms = [], []
+    for _ in range(n_iters):
+        seeds.append(seed_int32(
+            seed if seed is not None else
+            int(torch.randint(0, INT32_MAX, (), generator=gens[0]))))
+        all_perms.append(as_perms(perms, len(gens), n_blocks)
+                         if perms is not None
+                         else draw_perms(cfg, gens, n_blocks))
+    n_steps = cfg.n_epochs * cfg.n_minibatches
+    scalars = Optimizer(cfg).scalars(state.opt_state.count, n_iters * n_steps)
+    return (torch.tensor(seeds, dtype=torch.int32).view(n_iters, 1)
+            .to(device), torch.stack(all_perms).to(device),
+            scalars.view(n_iters, n_steps, 3).to(device))
 
-    It refuses the PPOConfig options the port does not implement yet
-    (`check_ported`); `fused_update_packed` is the fused update here."""
-    dev = resolve_device(device)
-    check_ported(cfg)
-    mark = on_phase if on_phase is not None else (lambda name: None)
+
+def _no_mark(name: str) -> None:
+    pass
+
+
+def _solo_iteration(cfg: PPOConfig, env_params: EnvParams,
+                    dev: torch.device) -> Callable:
+    """iteration(state, seed, perms, scalars, mark) -> (state, metrics):
+    one solo PPO iteration on its inputs (`iteration_inputs`' rows),
+    drawing nothing from the generator."""
     model = ActorCritic(device=dev)
     optimizer = Optimizer(cfg)
 
-    def train_step(state: TrainState, seed: Optional[int] = None,
-                   perms: Optional[Sequence] = None):
+    def iteration(state: TrainState, seed, perms, scalars, mark):
         state, batch, last_value, env_metrics = collect_rollout_fused(
             model, state, cfg, env_params, seed)
         mark("rollout")
@@ -395,7 +464,7 @@ def make_train_step(cfg: PPOConfig, env_params: EnvParams,
         mark("gae")
         params, opt_state, opt_metrics = ppo_update(
             state.params, state.opt_state, optimizer, batch, advantages,
-            returns, cfg, generator=state.generator, perms=perms)
+            returns, cfg, perms, scalars)
         mark("update")
         explained_var = 1.0 - (
             torch.var(returns - batch.values, correction=0)
@@ -405,7 +474,210 @@ def make_train_step(cfg: PPOConfig, env_params: EnvParams,
                    "explained_variance": explained_var}
         return state, metrics
 
-    return train_step
+    return iteration
+
+
+def eager_step(iteration: Callable, cfg: PPOConfig, dev: torch.device,
+               on_phase: Optional[Callable[[str], None]] = None) -> Callable:
+    """step(state, seed=None, perms=None) -> (state, metrics): `iteration`
+    on the state's next draws (`iteration_inputs`), run eagerly."""
+    mark = on_phase if on_phase is not None else _no_mark
+
+    def step(state, seed: Optional[int] = None, perms=None):
+        seeds, all_perms, scalars = iteration_inputs(cfg, state, 1, dev,
+                                                     seed, perms)
+        return iteration(state, seeds[0], all_perms[0], scalars[0], mark)
+
+    return step
+
+
+def make_train_step(cfg: PPOConfig, env_params: EnvParams,
+                    device=None,
+                    on_phase: Optional[Callable[[str], None]] = None
+                    ) -> Callable:
+    """Returns train_step(state, seed=None, perms=None) -> (state, metrics):
+    one PPO iteration (fused rollout, GAE, epochs of fused-gradient Adam
+    steps), run eagerly.  Metrics are 0-dim tensors on the state's device.
+    `on_phase(name)`, when given, is called as each phase ends ("rollout",
+    "gae", "update"), so a caller can time the phases of this very step.
+
+    It refuses the PPOConfig options the port does not implement yet
+    (`check_ported`); `fused_update_packed` is the fused update here."""
+    dev = resolve_device(device)
+    check_ported(cfg)
+    return eager_step(_solo_iteration(cfg, env_params, dev), cfg, dev,
+                      on_phase)
+
+
+# ------------------------------------------------- iterations per call
+
+def stacked_loop(step: Callable, iters_per_call: int) -> Callable:
+    """train_loop(state) -> (state, metrics): `iters_per_call` calls of
+    `step`, their metrics stacked on a leading (K,) axis."""
+    def train_loop(state):
+        rows = []
+        for _ in range(iters_per_call):
+            state, metrics = step(state)
+            rows.append(metrics)
+        return state, {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+
+    return train_loop
+
+
+def _state_leaves(state) -> List[torch.Tensor]:
+    """The tensors one iteration hands the next: params, Adam moments,
+    every EnvState field and obs."""
+    return ([state.params, state.opt_state.mu, state.opt_state.nu]
+            + [getattr(state.env_state, f.name)
+               for f in dataclasses.fields(EnvState)] + [state.obs])
+
+
+def _with_leaves(state, leaves: Sequence[torch.Tensor], iterations: int,
+                 adam_steps: int):
+    """`state` with `leaves` (in `_state_leaves`' order), `iterations` more
+    completed iterations and `adam_steps` more Adam steps."""
+    params, mu, nu, *rest = leaves
+    env = EnvState(**{f.name: t for f, t in
+                      zip(dataclasses.fields(EnvState), rest)})
+    return state.replace(
+        params=params, opt_state=AdamState(
+            mu=mu, nu=nu, count=state.opt_state.count + adam_steps),
+        env_state=env, obs=rest[-1], iteration=state.iteration + iterations)
+
+
+# the kernels a training iteration launches, whose counters a replay adds to
+_COUNTERS = (policy_rollout.fused_policy_rollout_members,
+             ppo_grads.ppo_minibatch_grads_members)
+
+
+class _IterationGraph:
+    """One PPO iteration captured as a CUDA graph, for one state shape.
+
+    Built at a loop's first call: that call's first iteration runs eagerly
+    on the capture stream (its result is the call's first; it also loads
+    the kernels, sets their attributes and warms cuBLAS, so that the
+    capture meets none of it), then the same iteration is captured on
+    static copies of the state's tensors and of the iteration's inputs.
+    Inside the graph the new state is copied back into the static state,
+    so replays chain with no copy between them, and the metrics are packed
+    into one static tensor.  The launch counters that the capture moved
+    are put back; each replay adds the launches it holds."""
+
+    def __init__(self, iteration: Callable, state, inputs: Sequence):
+        dev = state.params.device
+        current = torch.cuda.current_stream(dev)
+        stream = torch.cuda.Stream(device=dev)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            first, metrics = iteration(state, *inputs, _no_mark)
+            self.names = list(metrics)
+            self.first = (first, self.pack(metrics))
+            self.iteration = iteration
+            self.leaves = [t.clone() for t in _state_leaves(state)]
+            self.inputs = [x.clone() for x in inputs]
+            self.static = _with_leaves(state, self.leaves, 0, 0)
+            before = [c.launches for c in _COUNTERS]
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(self.graph, stream=stream):
+                    self.metrics = self.captured()
+            finally:
+                self.launches = [c.launches - n
+                                 for c, n in zip(_COUNTERS, before)]
+                for c, n in zip(_COUNTERS, before):
+                    c.launches = n
+        current.wait_stream(stream)
+
+    def captured(self) -> torch.Tensor:
+        """What the graph holds: the iteration on the static state and
+        inputs, its new state copied back into the static state; returns
+        the packed metrics."""
+        new, metrics = self.iteration(self.static, *self.inputs, _no_mark)
+        for dst, src in zip(self.leaves, _state_leaves(new)):
+            dst.copy_(src)
+        return self.pack(metrics)
+
+    def pack(self, metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return torch.stack([metrics[k] for k in self.names])
+
+    def load(self, state) -> None:
+        for dst, src in zip(self.leaves, _state_leaves(state)):
+            dst.copy_(src)
+
+    def replay(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """One iteration on the static state with `inputs`; returns its
+        packed metrics."""
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        self.graph.replay()
+        for c, n in zip(_COUNTERS, self.launches):
+            c.launches += n
+        return self.metrics.clone()
+
+
+class ReplayedLoop:
+    """train_loop(state) -> (state, metrics) on the card: `iters_per_call`
+    PPO iterations as replays of one iteration captured as a CUDA graph
+    (`_IterationGraph`, one per state shape), with one read-back of the
+    metrics per call left to the caller.
+
+    Before the replays the host makes every iteration's inputs
+    (`iteration_inputs`: the rollout seed and the epoch permutations
+    drawn from the state's generators in the eager order, and the Adam
+    scalars) and copies them to the card at once; before each replay they
+    are copied into the graph's static inputs on the card.  The call's
+    state is copied into the graph's static state first, and the result is
+    a copy of it, so the caller's state is never overwritten.  The
+    result equals `iters_per_call` eager steps bit for bit, generators
+    included.  A capture or replay that fails raises; nothing falls back
+    to the eager loop."""
+
+    def __init__(self, iteration: Callable, cfg: PPOConfig,
+                 iters_per_call: int):
+        self.iteration, self.cfg = iteration, cfg
+        self.iters_per_call = iters_per_call
+        self._graphs: Dict[Tuple, _IterationGraph] = {}
+
+    def __call__(self, state):
+        K = self.iters_per_call
+        inputs = iteration_inputs(self.cfg, state, K, state.params.device)
+        key = tuple((tuple(t.shape), t.dtype, t.device)
+                    for t in _state_leaves(state))
+        graph = self._graphs.get(key)
+        packed = []
+        if graph is None:
+            graph = _IterationGraph(self.iteration, state,
+                                    [x[0] for x in inputs])
+            self._graphs[key] = graph
+            state, first = graph.first
+            graph.first = None
+            packed.append(first)
+        done = len(packed)
+        if done < K:
+            graph.load(state)
+            for k in range(done, K):
+                packed.append(graph.replay([x[k] for x in inputs]))
+            state = _with_leaves(
+                state, [t.clone() for t in graph.leaves], K - done,
+                (K - done) * self.cfg.n_epochs * self.cfg.n_minibatches)
+        return state, dict(zip(graph.names, torch.stack(packed).unbind(1)))
+
+
+def make_train_loop(cfg: PPOConfig, env_params: EnvParams,
+                    iters_per_call: int, device=None) -> Callable:
+    """Returns train_loop(state) -> (state, metrics): `iters_per_call` PPO
+    iterations a call, metrics stacked on a leading (K,) axis, as K calls
+    of `make_train_step`'s step would give them (the counterpart of JAX
+    `learner.make_train_loop`, a `lax.scan` of the step).  On the CPU it
+    is those K eager steps; on the card, replays of one captured iteration
+    (`ReplayedLoop`)."""
+    dev = resolve_device(device)
+    check_ported(cfg)
+    if dev.type != "cuda":
+        return stacked_loop(make_train_step(cfg, env_params, dev),
+                            iters_per_call)
+    return ReplayedLoop(_solo_iteration(cfg, env_params, dev), cfg,
+                        iters_per_call)
 
 
 # -------------------------------------------------------------- evaluation

@@ -32,7 +32,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,24 +82,21 @@ def init_population(cfg: PPOConfig, env_params: EnvParams, pop: int,
 
 
 def collect_rollout_fused_members(state: PopulationState, cfg: PPOConfig,
-                                  env_params: EnvParams,
-                                  seed: Optional[int] = None
+                                  env_params: EnvParams, seed
                                   ) -> Tuple[PopulationState,
                                              learner.RolloutBatch,
                                              torch.Tensor,
                                              Dict[str, torch.Tensor]]:
     """cfg.n_steps / fused_chunk launches of the member-grid rollout, one
-    seed for all chunks and members (drawn from member 0's generator unless
-    given) and the step counter offset by chunk.  Returns (state', batch
-    with time-major (T, P, B, ...) leaves, last_values (P, B), per-member
-    episode metrics (P,))."""
+    seed for all chunks and members (an int or a (1,) int32 tensor on the
+    state's device; the steps draw it from member 0's generator) and the
+    step counter offset by chunk.  Returns (state', batch with time-major
+    (T, P, B, ...) leaves, last_values (P, B), per-member episode metrics
+    (P,))."""
     K = cfg.fused_chunk
     if cfg.n_steps % K:
         raise ValueError(f"n_steps {cfg.n_steps} not divisible by "
                          f"fused_chunk {K}")
-    if seed is None:
-        seed = int(torch.randint(0, learner.INT32_MAX, (),
-                                 generator=state.generators[0]))
     es = state.env_state
     flat = dict(px=es.px, py=es.py, psi=es.ppsi, tx=es.tx[..., 0],
                 ty=es.ty[..., 0], tv=es.tv[..., 0], tpsi=es.tpsi[..., 0],
@@ -145,24 +142,15 @@ def collect_rollout_fused_members(state: PopulationState, cfg: PPOConfig,
     return new_state, batch, last_values, metrics
 
 
-def make_population_step(cfg: PPOConfig, env_params: EnvParams, device=None,
-                         on_phase: Optional[Callable[[str], None]] = None
-                         ) -> Callable:
-    """Returns step(state, seed=None, perms=None) -> (state, metrics): one
-    PPO iteration of every member (member-grid rollout, GAE, epochs of
-    member-batched gradient steps with Adam).  Metrics are (P,) tensors.
-    `seed` replaces the rollout seed drawn from member 0's generator and
-    `perms[e]` ((P, N / block) indices) replaces epoch e's permutations
-    drawn from each member's generator: the parity tests pass the draws
-    the JAX step derives from its keys.  `on_phase(name)` is called as each
-    phase ends ("rollout", "gae", "update")."""
-    resolve_device(device)
-    learner.check_ported(cfg)
-    mark = on_phase if on_phase is not None else (lambda name: None)
+def _population_iteration(cfg: PPOConfig, env_params: EnvParams
+                          ) -> Callable:
+    """iteration(state, seed, perms, scalars, mark) -> (state, metrics):
+    one PPO iteration of every member on its inputs
+    (`learner.iteration_inputs`' rows), drawing nothing from the
+    generators."""
     optimizer = learner.Optimizer(cfg)
 
-    def step(state: PopulationState, seed: Optional[int] = None,
-             perms: Optional[Sequence] = None):
+    def iteration(state: PopulationState, seed, perms, scalars, mark):
         state, batch, last_values, env_metrics = (
             collect_rollout_fused_members(state, cfg, env_params, seed))
         mark("rollout")
@@ -180,8 +168,8 @@ def make_population_step(cfg: PPOConfig, env_params: EnvParams, device=None,
                           for x in fields], dim=-1)
         data = data.transpose(0, 1).reshape(P, T * B, data.shape[-1])
         params, opt_state, opt_metrics = learner.ppo_update_members(
-            state.params, state.opt_state, optimizer, data, cfg,
-            generators=state.generators, perms=perms)
+            state.params, state.opt_state, optimizer, data, cfg, perms,
+            scalars)
         mark("update")
         explained_var = 1.0 - (
             torch.var(returns - batch.values, dim=(0, 2), correction=0)
@@ -191,7 +179,41 @@ def make_population_step(cfg: PPOConfig, env_params: EnvParams, device=None,
                    "explained_variance": explained_var}
         return state, metrics
 
-    return step
+    return iteration
+
+
+def make_population_step(cfg: PPOConfig, env_params: EnvParams, device=None,
+                         on_phase: Optional[Callable[[str], None]] = None
+                         ) -> Callable:
+    """Returns step(state, seed=None, perms=None) -> (state, metrics): one
+    PPO iteration of every member (member-grid rollout, GAE, epochs of
+    member-batched gradient steps with Adam), run eagerly.  Metrics are
+    (P,) tensors.  `seed` replaces the rollout seed drawn from member 0's
+    generator and `perms[e]` ((P, N / block) indices) replaces epoch e's
+    permutations drawn from each member's generator: the parity tests pass
+    the draws the JAX step derives from its keys.  `on_phase(name)` is
+    called as each phase ends ("rollout", "gae", "update")."""
+    dev = resolve_device(device)
+    learner.check_ported(cfg)
+    return learner.eager_step(_population_iteration(cfg, env_params), cfg,
+                              dev, on_phase)
+
+
+def make_population_loop(cfg: PPOConfig, env_params: EnvParams,
+                         iters_per_call: int, device=None) -> Callable:
+    """Returns loop(state) -> (state, metrics): `iters_per_call`
+    iterations of every member a call, metrics (K, P) (JAX
+    `population.make_population_loop`).  On the CPU, K calls of
+    `make_population_step`'s step; on the card, replays of one captured
+    iteration (`learner.ReplayedLoop`): the seed still comes from member
+    0's generator and each member's permutations from its own."""
+    dev = resolve_device(device)
+    learner.check_ported(cfg)
+    if dev.type != "cuda":
+        return learner.stacked_loop(
+            make_population_step(cfg, env_params, dev), iters_per_call)
+    return learner.ReplayedLoop(_population_iteration(cfg, env_params), cfg,
+                                iters_per_call)
 
 
 def make_population_eval(cfg: PPOConfig, env_params: EnvParams,

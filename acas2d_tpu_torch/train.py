@@ -35,6 +35,19 @@ acas2d_tpu_torch.pipeline` runs the whole shipped pipeline.
 `global_step` counts each member's env-steps; `steps_per_s` is the whole
 population's.
 
+`--iters-per-call K` runs K PPO iterations a call, as JAX's does: on the card
+as K replays of one iteration captured as a CUDA graph
+(`learner.make_train_loop`, `population.make_population_loop`), with one
+read-back of the metrics a call; on the CPU as K eager steps.  Every
+iteration still logs its row (`steps_per_s` is the call's K iterations over
+its time, `seconds` its time over K); evals and checkpoints fire between
+calls, so a budget that is not a multiple of K batches is overshot, as
+JAX's loop does.  The default is JAX's: for `--preset tpu` on the card
+eval_every / batch iterations, at most 16 (4 for the solo preset, 8 for
+the pipeline's population), else 1.  With K = 1 every iteration is an eager
+step.  `--profile` writes a `torch.profiler` trace (CPU and CUDA
+activities) of calls 2-4 to `<run>/trace/trace.json`, a Chrome trace.
+
 Every run keeps a run directory, `<out-dir>/<run-name>/` (JAX's default
 name, `ppo_[popP_]<envs>x<steps>_<total>_s<seed>`):
 
@@ -52,6 +65,14 @@ state, env state, generators and the `--exact-eval` Mersenne stream);
 checkpoint.  A resume that changes `--total-steps` names the run with
 `--run-name`, since the default name holds the budget.
 
+`summary.json` holds JAX's keys less `compile_cache` and `n_devices`, with
+`device` added: among them `iters_per_call` and the phase timers
+(`phases`, `phases_other_s`: `dispatch`, the call until its metrics are
+queued; `train_first_call` and `train_step`, the read-back that waits for
+them; `log`, `checkpoint`, `best_ckpt`, `final_reval` as JAX names them,
+and `eval`, the port's synchronous eval, where JAX splits `eval_enqueue`
+and `eval_resolve`).
+
 The fused paths are on by default (`--no-fused-rollout` and
 `--no-fused-update` ask for the unfused ones, which are not ported yet).
 `--fused-update-packed` is the fused update in the port (its parameters
@@ -60,8 +81,8 @@ are always one flat vector in the kernel's layout), and
 bf16.  Options the port does not implement yet are refused with an error,
 so a JAX command line never silently means something else: the unfused
 paths map onto their `PPOConfig` fields, which `learner.check_ported`
-refuses, and flags with no port at all (`--iters-per-call`, `--profile`,
-`--dtype`, `--platform`, `--compile-cache`) are unknown to the parser.
+refuses, and flags with no port at all (`--dtype`, `--platform`,
+`--compile-cache`) are unknown to the parser.
 """
 
 from __future__ import annotations
@@ -72,7 +93,7 @@ import json
 import os
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -82,6 +103,7 @@ from acas2d_tpu_torch.config import DEFAULT_PARAMS
 from acas2d_tpu_torch.ppo import learner, population
 from acas2d_tpu_torch.ppo.config import PPOConfig, tpu_default
 from acas2d_tpu_torch.utils.checkpoint import CheckpointManager
+from acas2d_tpu_torch.utils import profiling
 from acas2d_tpu_torch.utils.logging import MetricsLogger
 from acas2d_tpu_torch.utils.params_io import load_flat_params
 
@@ -171,6 +193,18 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
+    p.add_argument("--iters-per-call", type=int, default=None,
+                   help="PPO iterations a call: on the card K replays of "
+                        "one iteration captured as a CUDA graph, one "
+                        "metrics read-back a call; every iteration still "
+                        "logs its row. Evals and checkpoints fire between "
+                        "calls. Default: for --preset tpu on the card, "
+                        "eval_every // batch_size capped at 16; else 1")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace (CPU and CUDA "
+                        "activities, Chrome format) of calls 2-4 to "
+                        "<run>/trace/trace.json and print the card's "
+                        "memory at the end")
     args = p.parse_args(argv)
     args.argv = sys.argv[1:] if argv is None else list(argv)
     return args
@@ -195,6 +229,28 @@ def build_config(args) -> PPOConfig:
                      fused_update_packed=args.fused_update_packed,
                      fused_update_bf16=args.fused_update_bf16)
     return dataclasses.replace(cfg, **overrides)
+
+
+def resolve_iters_per_call(requested: Optional[int], preset: str,
+                           device: torch.device, cfg: PPOConfig) -> int:
+    """--iters-per-call (JAX train.py:resolve_iters_per_call, whose
+    accelerator backend is the card here): as asked, else for --preset tpu
+    on the card eval_every / steps-per-iteration capped at 16, so that an
+    eval fires at most once a call; else 1."""
+    if requested is not None:
+        return max(1, requested)
+    if preset == "tpu" and device.type == "cuda":
+        return max(1, min(16, cfg.eval_every_steps // cfg.batch_size))
+    return 1
+
+
+def one_iteration_a_call(step: Callable) -> Callable:
+    """A step as a call of one iteration: metrics with a leading (1,)
+    axis, as a loop of K gives them (K, ...)."""
+    def call(state):
+        state, metrics = step(state)
+        return state, {k: v[None] for k, v in metrics.items()}
+    return call
 
 
 def _init_params(path: str, pop: int) -> torch.Tensor:
@@ -291,16 +347,21 @@ def _emit(row: Dict, rows: List[Dict]) -> None:
 
 class _Run:
     """What the solo and population loops share: the run dir, its
-    checkpoints and loggers, resume, the eval and checkpoint cadences, the
-    iteration loop and summary.json."""
+    checkpoints and loggers, resume, the iterations a call, the eval and
+    checkpoint cadences, the loop, its phase timers and trace, and
+    summary.json."""
 
     def __init__(self, args, cfg: PPOConfig, run_dir: str):
         self.t_main = time.perf_counter()
         self.args, self.cfg, self.run_dir = args, cfg, run_dir
+        self.device = resolve_device(args.device)
+        self.iters_per_call = resolve_iters_per_call(
+            args.iters_per_call, args.preset, self.device, cfg)
         os.makedirs(run_dir, exist_ok=True)
         self.ckpt = CheckpointManager(os.path.join(run_dir, "checkpoints"))
         self.logger = MetricsLogger(run_dir, "train")
         self.eval_logger = MetricsLogger(run_dir, "eval")
+        self.timers = profiling.PhaseTimers()
         self.evals_done = 0
         self.first_call_s = None
         self.t_start = self.start_step = None
@@ -324,22 +385,27 @@ class _Run:
         return state
 
     def save(self, state, flush=None) -> None:
-        self.ckpt.save(self.gstep(state), learner.state_to_dict(state))
-        record_eval_count(self.run_dir, self.gstep(state), self.evals_done)
-        if flush is not None:
-            flush()
+        with self.timers("checkpoint"):
+            self.ckpt.save(self.gstep(state), learner.state_to_dict(state))
+            record_eval_count(self.run_dir, self.gstep(state),
+                              self.evals_done)
+            if flush is not None:
+                flush()
 
-    def loop(self, state, step, make_row, steps_per_iter, evaluate,
+    def loop(self, state, call, make_rows, steps_per_iter, evaluate,
              flush=None):
-        """Train until the budget is spent (the last iteration included
-        when it is not a multiple of the batch, JAX train.py:538).
-        make_row(metrics) -> the iteration's row (one sync, inside its
-        `seconds`, which `steps_per_iter` env-steps divide into
-        `steps_per_s`); evaluate(state, gstep) -> (eval keys for the
-        printed row, the eval log's row).  Cadences restart from the
-        restored step; a Ctrl-C keeps the last whole iteration and saves
-        it."""
-        cfg, every = self.cfg, self.args.checkpoint_every
+        """Train until the budget is spent, a call at a time: call(state)
+        -> (state, metrics with a leading (K,) axis); make_rows(metrics)
+        -> the call's K rows (one sync: the call's `seconds` run to its
+        rows on the host, and `steps_per_iter` env-steps an iteration
+        give `steps_per_s`).  A call that passes the budget runs whole
+        (JAX train.py:538).  evaluate(state, gstep) -> (eval keys for the
+        printed row, the eval log's row); evals and checkpoints fire
+        between calls, their cadences restarting from the restored step.
+        A Ctrl-C keeps the last whole call and saves it, with the
+        generators rewound to its end.  With --profile, calls 2-4 are
+        traced."""
+        cfg, every, timers = self.cfg, self.args.checkpoint_every, self.timers
         rows: List[Dict] = []
         self.t_start = time.perf_counter()
         self.start_step = start = self.gstep(state)
@@ -348,67 +414,97 @@ class _Run:
         if start > 0:
             next_eval += cfg.eval_every_steps
             next_ckpt += every
+        tracer = None
+        calls = 0
         try:
             while self.gstep(state) < cfg.total_timesteps:
+                if self.args.profile and calls == 1:
+                    tracer = profiling.Trace(
+                        os.path.join(self.run_dir, "trace"),
+                        self.device.type == "cuda")
+                    tracer.start()
                 before = [g.get_state() for g in state.generators]
                 t0 = time.perf_counter()
                 try:
-                    new_state, metrics = step(state)
-                    row = make_row(metrics)
+                    with timers("dispatch"):
+                        new_state, metrics = call(state)
+                    with timers("train_first_call" if calls == 0
+                                else "train_step"):
+                        call_rows = make_rows(metrics)
                 except KeyboardInterrupt:
-                    # the step drew from the generators: rewind them to
+                    # the call drew from the generators: rewind them to
                     # the state that is kept
                     for g, s in zip(state.generators, before):
                         g.set_state(s)
                     raise
                 dt = time.perf_counter() - t0
+                if tracer is not None and calls == 3:
+                    tracer.stop()
+                    tracer = None
+                calls += 1
                 state = new_state
                 if self.first_call_s is None:
                     self.first_call_s = dt
+                n = len(call_rows)
+                with timers("log"):
+                    for i, row in enumerate(call_rows):
+                        it = state.iteration - n + 1 + i
+                        row.update(iteration=it,
+                                   global_step=it * cfg.batch_size,
+                                   steps_per_s=n * steps_per_iter / dt,
+                                   seconds=dt / n)
+                        self.logger.log(row, step=row["global_step"])
                 gstep = self.gstep(state)
-                row.update(iteration=state.iteration, global_step=gstep,
-                           steps_per_s=steps_per_iter / dt, seconds=dt)
-                self.logger.log(row, step=gstep)
                 if gstep >= next_eval:
                     t1 = time.perf_counter()
                     shown, logged = evaluate(state, gstep)
                     shown["eval_seconds"] = time.perf_counter() - t1
                     logged["eval_seconds"] = shown["eval_seconds"]
                     self.eval_logger.log(logged, step=gstep)
-                    row = {**row, **shown}
+                    call_rows[-1] = {**call_rows[-1], **shown}
                     self.evals_done += 1
                     while next_eval <= gstep:
                         next_eval += cfg.eval_every_steps
-                _emit(row, rows)
+                with timers("log"):
+                    for row in call_rows:
+                        _emit(row, rows)
                 if gstep >= next_ckpt:
                     self.save(state, flush)
                     while next_ckpt <= gstep:
                         next_ckpt += every
         except KeyboardInterrupt:
             print("interrupted; saving checkpoint", file=sys.stderr)
+        if tracer is not None:
+            tracer.stop()
         self.save(state, flush)
+        if self.args.profile:
+            mem = profiling.device_memory_stats(self.device)
+            if mem:
+                print(f"device memory: {mem}", file=sys.stderr)
         return state, rows
 
-    def summary(self, state, device, selection: Optional[Dict] = None
-                ) -> Dict:
-        """summary.json: JAX's keys, less those of its compile cache, phase
-        timers and fused iterations, with `device` for `n_devices`; a
-        population's adds its aggregate rate and `selection`."""
+    def summary(self, state, selection: Optional[Dict] = None) -> Dict:
+        """summary.json: JAX's keys, less that of its compile cache, with
+        `device` for `n_devices`; a population's adds its aggregate rate
+        and `selection`."""
         cfg = self.cfg
         total = time.perf_counter() - self.t_start
+        phases = self.timers.report()
         steps_done = self.gstep(state) - self.start_step
-        first_steps = cfg.batch_size if self.first_call_s is not None else 0
+        first_steps = (self.iters_per_call * cfg.batch_size
+                       if self.first_call_s is not None else 0)
         post_steps = steps_done - first_steps
         post_wall = total - (self.first_call_s or 0.0)
         summary = {
             "run_name": os.path.basename(self.run_dir),
             "argv": self.args.argv,
             "backend": "torch",
-            "device": str(device),
+            "device": str(self.device),
             "config": {k: getattr(cfg, k) for k in (
                 "n_envs", "n_steps", "total_timesteps", "minibatch_size",
                 "n_epochs", "learning_rate", "anneal_lr", "seed",
                 "fused_rollout", "fused_update", "eval_every_steps")},
+            "iters_per_call": self.iters_per_call,
             "population": self.args.population or None,
             "global_step": self.gstep(state),
             "steps_this_process": steps_done,
@@ -420,6 +516,11 @@ class _Run:
                                    else None),
             "first_call_s": (round(self.first_call_s, 3)
                              if self.first_call_s else None),
+            # per-phase wall-clock shares; 'other' = host time outside
+            # every timed phase
+            "phases": phases,
+            "phases_other_s": round(total - sum(
+                v for k, v in phases.items() if k.endswith("_s")), 3),
         }
         if self.args.population:
             summary["aggregate_steps_per_s"] = round(
@@ -427,6 +528,7 @@ class _Run:
             summary["population_selection"] = selection
         with open(os.path.join(self.run_dir, "summary.json"), "w") as f:
             json.dump(summary, f, indent=1)
+        print(f"phase timers: {phases}", file=sys.stderr)
         self.logger.close()
         self.eval_logger.close()
         return summary
@@ -439,10 +541,12 @@ def run(args) -> List[Dict[str, float]]:
         return run_population(args)
     cfg = build_config(args)
     learner.check_ported(cfg)
-    device = resolve_device(args.device)
     env_params = DEFAULT_PARAMS
     r = _Run(args, cfg, os.path.join(args.out_dir, run_name_of(args, cfg)))
-    train_step = learner.make_train_step(cfg, env_params, device)
+    device, K = r.device, r.iters_per_call
+    call = (learner.make_train_loop(cfg, env_params, K, device) if K > 1
+            else one_iteration_a_call(
+                learner.make_train_step(cfg, env_params, device)))
     state = learner.init_train_state(cfg, env_params, device)
     if args.init_params_npz:
         state = state.replace(
@@ -455,22 +559,23 @@ def run(args) -> List[Dict[str, float]]:
     else:
         eval_fn = learner.make_eval_fn(cfg, env_params, device=device)
 
-    def make_row(metrics):
+    def make_rows(metrics):
         keys = list(metrics)
         values = torch.stack([metrics[k].to(torch.float64)
                               for k in keys]).tolist()     # one sync
-        return dict(zip(keys, values))
+        return [dict(zip(keys, col)) for col in zip(*values)]
 
     def evaluate(state, gstep):
-        em = {k: float(v) for k, v in eval_fn(
-            state.params, eval_generator(cfg.seed, gstep)).items()}
+        with r.timers("eval"):
+            em = {k: float(v) for k, v in eval_fn(
+                state.params, eval_generator(cfg.seed, gstep)).items()}
         # best-model tracking rides the eval cadence (EvalCallback)
-        r.ckpt.update_best(gstep, learner.state_to_dict(state), em)
+        with r.timers("best_ckpt"):
+            r.ckpt.update_best(gstep, learner.state_to_dict(state), em)
         return em, dict(em)
 
-    state, rows = r.loop(state, train_step, make_row, cfg.batch_size,
-                         evaluate)
-    r.summary(state, device)
+    state, rows = r.loop(state, call, make_rows, cfg.batch_size, evaluate)
+    r.summary(state)
     return rows
 
 
@@ -485,14 +590,15 @@ def run_population(args) -> List[Dict]:
                          "acas2d_tpu_torch.eval --exact")
     cfg = build_config(args)
     learner.check_ported(cfg)
-    device = resolve_device(args.device)
     env_params = DEFAULT_PARAMS
     pop = args.population
     run_name = run_name_of(args, cfg)
     run_dir = os.path.join(args.out_dir, run_name)
     r = _Run(args, cfg, run_dir)
-
-    step = population.make_population_step(cfg, env_params, device)
+    device, K = r.device, r.iters_per_call
+    call = (population.make_population_loop(cfg, env_params, K, device)
+            if K > 1 else one_iteration_a_call(
+                population.make_population_step(cfg, env_params, device)))
     state = population.init_population(cfg, env_params, pop, device)
     if args.init_params_npz:
         state = state.replace(
@@ -501,25 +607,27 @@ def run_population(args) -> List[Dict]:
     eval_fn = population.make_population_eval(cfg, env_params, device=device)
     tracker = population.PopulationTracker(run_dir, pop, cfg.seed)
 
-    def make_row(metrics):
+    def make_rows(metrics):
         keys = list(metrics)
         values = torch.stack([metrics[k].to(torch.float64)
                               for k in keys]).cpu().numpy()    # one sync
-        row = {k: float(v.mean()) for k, v in zip(keys, values)}
-        row.update(ep_return_max=float(values[keys.index("ep_return_mean")]
-                                       .max()))
-        return row
+        returns = values[keys.index("ep_return_mean")]
+        return [{**{k: float(v[i].mean()) for k, v in zip(keys, values)},
+                 "ep_return_max": float(returns[i].max())}
+                for i in range(values.shape[1])]
 
     def evaluate(state, gstep):
-        em = {k: v.to(torch.float64).cpu().numpy()
-              for k, v in eval_fn(state.params,
-                                  eval_generator(cfg.seed, gstep)).items()}
+        with r.timers("eval"):
+            em = {k: v.to(torch.float64).cpu().numpy()
+                  for k, v in eval_fn(state.params, eval_generator(
+                      cfg.seed, gstep)).items()}
         vals = em["eval_return_mean"]
         shown = {k: float(v.mean()) for k, v in em.items()}
         shown.update(eval_return_max=float(vals.max()),
                      eval_best_member=int(vals.argmax()),
                      eval_return_members=[round(float(v), 2) for v in vals])
-        n_up = tracker.update(gstep, vals, state.params.cpu().numpy())
+        with r.timers("best_ckpt"):
+            n_up = tracker.update(gstep, vals, state.params.cpu().numpy())
         if n_up:
             print(f"population: {n_up} member(s) improved; best="
                   f"{tracker.best_vals.max():.2f} (member "
@@ -528,7 +636,7 @@ def run_population(args) -> List[Dict]:
             shown["eval_return_members"]))
         return shown, logged
 
-    state, rows = r.loop(state, step, make_row,
+    state, rows = r.loop(state, call, make_rows,
                          population.population_throughput_steps(cfg, pop),
                          evaluate, tracker.flush)
 
@@ -540,10 +648,11 @@ def run_population(args) -> List[Dict]:
             env_params, device=device)
         flat, _ = tracker.snapshots_flat()
         t0 = time.perf_counter()
-        rm = reval_fn(torch.as_tensor(flat, device=device),
-                      torch.Generator().manual_seed(cfg.seed + 99))
-        reval_vals = rm["eval_return_mean"].cpu().numpy()
-        reval_stds = rm["eval_return_std"].cpu().numpy()
+        with r.timers("final_reval"):
+            rm = reval_fn(torch.as_tensor(flat, device=device),
+                          torch.Generator().manual_seed(cfg.seed + 99))
+            reval_vals = rm["eval_return_mean"].cpu().numpy()
+            reval_stds = rm["eval_return_std"].cpu().numpy()
         print(f"population: re-eval of {flat.shape[0]} snapshots "
               f"({pop} members x {tracker.k}), {args.reval_episodes} "
               f"episodes each: {time.perf_counter() - t0:.3f} s",
@@ -555,7 +664,7 @@ def run_population(args) -> List[Dict]:
     print(f"population: selected member {selection['selected_member']} "
           f"(seed {selection['selected_seed']}, by "
           f"{selection['selected_by']}) eval {sel_val:.2f}", file=sys.stderr)
-    r.summary(state, device, selection)
+    r.summary(state, selection)
 
     if args.polish_steps > 0:
         if tracker.snap_params is None:
@@ -605,6 +714,7 @@ def polish_argv(args, run_dir: str, run_name: str) -> List[str]:
                       ("--fused-chunk", args.fused_chunk),
                       ("--eval-episodes", args.eval_episodes),
                       ("--eval-every", args.eval_every),
+                      ("--iters-per-call", args.iters_per_call),
                       ("--device", args.device)):
         if val is not None:
             argv += [flag, str(val)]

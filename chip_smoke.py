@@ -25,12 +25,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      `tpu` preset's loss settings and again with ent_coef 0.01; then two
      launches on the same operands, which must agree bit for bit;
   4. the solo main path: `acas2d_tpu_torch.train` at the full `tpu` preset
-     shape (2048 x 128, minibatch 65,536, 10 epochs) for 3 iterations, with
-     the launch counters read around it (8 rollout and 40 gradient launches
-     per iteration) and every metric finite; then one more iteration of the
-     learner's step cut into rollout / GAE / update by its phase hook;
+     shape (2048 x 128, minibatch 65,536, 10 epochs) for 3 iterations, one
+     eager iteration a call (--iters-per-call 1), with the launch counters
+     read around it (8 rollout and 40 gradient launches per iteration) and
+     every metric finite; then one more iteration of the learner's step cut
+     into rollout / GAE / update by its phase hook;
   5. the population main path: the shipped pipeline's command
-     (scripts/population_pipeline.sh) for 3 iterations (--population 32
+     (scripts/population_pipeline.sh) for 3 iterations, one a call
+     (--iters-per-call 1; --population 32
      --n-envs 1024 --minibatch-size 32768 --anneal-lr --fused-rollout
      --fused-update-packed --eval-episodes 32), with the re-eval cut from
      512 to 64 episodes and one polish round of one iteration at
@@ -58,8 +60,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   9. the gradient kernel's bf16 variant against its plain version, solo
      (N = 65,536) and member-batched (P = 32 x N = 32,768), its deviation
      from the f32 kernel, and the precision probe, whose answer must agree
-     with that deviation; then bf16 training, solo (`train --preset tpu
-     --fused-update-bf16`, 3 iterations) and one population iteration, with
+     with that deviation; then bf16 training, one iteration a call, solo
+     (`train --preset tpu --fused-update-bf16`, 3 iterations) and one
+     population iteration, with
      the launch counters read around each, and one more bf16 population
      iteration cut into rollout / GAE / update;
  10. kernel and plain-version times from CUDA events, each kernel's bound,
@@ -77,22 +80,35 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      its 64-step chunks replayed as CUDA graphs (`learner.GreedyEval`):
      returns, lengths and outcomes bit-identical, both timed;
  12. a whole solo run, `train --preset tpu` at its default budget (32
-     iterations, evals of 10 episodes every 4, a checkpoint every
-     iteration), with the launch counters read around it, its kept
-     checkpoints, best/ and summary.json checked, its wall time and the
-     evals' part of it; then `eval --run DIR --best --exact --episodes 100`
-     (finite; no score gate: one seed of a 32-iteration run);
- 13. exact resume: 6 solo iterations straight against 3 and a --resume
-     to 6; the population command (P = 32) for 3 iterations against the
-     same command stopped by a Ctrl-C in its third iteration and resumed;
-     params, Adam moments and env state bit-identical;
+     iterations, at the default 4 a call: replays of a captured iteration;
+     evals of 10 episodes every 4, a checkpoint every call), with the
+     launch counters read around it, its kept checkpoints, best/ and
+     summary.json checked, its wall time and the evals' part of it; then
+     `eval --run DIR --best --exact --episodes 100` (finite; no score gate:
+     one seed of a 32-iteration run);
+ 13. exact resume of runs of K > 1 iterations a call: 6 solo iterations,
+     3 a call, straight against 3 and a --resume to 6; the population
+     command (P = 32, the default 8 a call) for 16 iterations against the
+     same command stopped by a Ctrl-C in the middle of its second call and
+     resumed; params, Adam moments and env state bit-identical;
  14. the shipped pipeline (`python -m acas2d_tpu_torch.pipeline`) at a cut
-     budget: phase 5's stage 1 with two polish rounds of one iteration, a
-     gate no policy reaches and two attempts; the launch counters read
-     around it, its 6 candidate dirs (each stage 1 among them), the merge
-     record of each polish stage, the `_final` record against the
-     committed artifact's keys, and its strict eval's CSV against the
-     exact eval of the kept policy, episode for episode.
+     budget: phase 5's stage 1 and two polish rounds, each one call of the
+     default 8 iterations, a gate no policy reaches and two attempts; the
+     launch counters read around it, its 6 candidate dirs (each stage 1
+     among them), the merge record of each polish stage, the `_final`
+     record against the committed artifact's keys, and its strict eval's
+     CSV against the exact eval of the kept policy, episode for episode;
+ 15. K iterations a call as replays of one iteration captured as a CUDA
+     graph (`learner.make_train_loop`, `population.make_population_loop`)
+     against as many eager steps from the same state and generators: the
+     solo `tpu` preset (K = 4), the pipeline's P = 32 (K = 8) and solo
+     bf16 (K = 4), two calls each (the first builds the graph from its
+     first iteration): params, Adam moments, env state, obs, metrics and
+     generators bit-identical, the launch counters at K x (8 + 40) a call;
+     eager against replayed ms an iteration, in turns; the peak memory of
+     each; and the card's busy share (the union of the kernels' intervals
+     over the window) of a `train --profile` trace of calls 2-4, solo and
+     at P = 32.
 Every training run writes its run directory into a temporary directory.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -122,6 +138,7 @@ from acas2d_tpu_torch.ops import (_cuda, env_rollout, policy_rollout,
                                   ppo_grads, precision_probe)
 from acas2d_tpu_torch.ops import step_math as sm
 from acas2d_tpu_torch.ppo.config import tpu_default
+from acas2d_tpu_torch.types import EnvState
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit):
 # memory, float32 on the CUDA cores (an FMA counted as 2), bf16, TF32 and
@@ -142,6 +159,10 @@ SOLO_B, SOLO_N = 2048, 65536     # solo main path: envs, minibatch rows
 POP, POP_B, POP_N = 32, 1024, 32768   # population: members, envs, rows
 ITERS = 3
 POLISH_POP = 16
+# JAX's default iterations a call on an accelerator (train.py:183-192),
+# eval_every / batch at most 16: 4 solo, 8 at the pipeline's shape
+SOLO_K = min(16, tpu_default().eval_every_steps // (SOLO_B * 128))
+POP_K = min(16, tpu_default().eval_every_steps // (POP_B * 128))
 POP_ARGV = ["--preset", "tpu", "--anneal-lr", "--population", str(POP),
             "--fused-rollout", "--fused-update-packed",
             "--n-envs", str(POP_B), "--minibatch-size", str(POP_N),
@@ -522,7 +543,7 @@ def phase_main_path():
     from acas2d_tpu_torch import train
     with tempfile.TemporaryDirectory() as out:
         argv = ["--preset", "tpu", "--total-steps", str(ITERS * SOLO_B * 128),
-                "--out-dir", out]
+                "--iters-per-call", "1", "--out-dir", out]
         reset_counts()
         rows = train.run(train.parse_args(argv))
         launches = read_counts()
@@ -577,7 +598,8 @@ def phase_population():
     from acas2d_tpu_torch import eval as eval_driver
     from acas2d_tpu_torch import train
     with tempfile.TemporaryDirectory() as out:
-        argv = POP_ARGV + ["--out-dir", out, "--run-name", "pop"]
+        argv = POP_ARGV + ["--iters-per-call", "1", "--out-dir", out,
+                           "--run-name", "pop"]
         reset_counts()
         t0 = time.perf_counter()
         rows = train.run(train.parse_args(argv))
@@ -718,9 +740,10 @@ WHOLE_ITERS = 32          # the tpu preset's budget, 8,388,608 env-steps
 
 def phase_solo_run():
     """`train --preset tpu` at its default budget (32 iterations of 2048 x
-    128; evals of 10 episodes every 4 iterations), a checkpoint every
-    iteration, with the launch counters read around it; then its best
-    checkpoint through `eval --run --best --exact --episodes 100`."""
+    128, SOLO_K a call: replays of a captured iteration; evals of 10
+    episodes every 4 iterations), a checkpoint every call, with the launch
+    counters read around it; then its best checkpoint through `eval --run
+    --best --exact --episodes 100`."""
     from acas2d_tpu_torch import eval as eval_driver
     from acas2d_tpu_torch import train
     batch = SOLO_B * 128
@@ -739,8 +762,8 @@ def phase_solo_run():
         run_dir = os.path.join(out, "solo")
         ckpt_dir = os.path.join(run_dir, "checkpoints")
         kept = sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
-        check(kept == [batch * i for i in range(WHOLE_ITERS - 4,
-                                                WHOLE_ITERS + 1)],
+        check(kept == [batch * i for i in range(
+            WHOLE_ITERS - 4 * SOLO_K, WHOLE_ITERS + 1, SOLO_K)],
               f"kept checkpoints {kept}")
         with open(os.path.join(ckpt_dir, "best", "best_value.json")) as f:
             best = json.load(f)
@@ -748,7 +771,8 @@ def phase_solo_run():
         with open(os.path.join(run_dir, "summary.json")) as f:
             summary = json.load(f)
         check(summary["global_step"] == WHOLE_ITERS * batch
-              and summary["device"] == "cuda")
+              and summary["device"] == "cuda"
+              and summary["iters_per_call"] == SOLO_K)
         evals = [r for r in rows if "eval_seconds" in r]
         eval_s = sum(r["eval_seconds"] for r in evals)
         train_s = sum(r["seconds"] for r in rows)
@@ -757,7 +781,7 @@ def phase_solo_run():
               f"iterations {train_s:.2f} s; eval returns "
               f"{[round(r['eval_return_mean'], 2) for r in evals]}; best "
               f"{best['value']:.2f} at step {best['step']}; summary "
-              f"{json.dumps({k: summary[k] for k in ('total_wall_s', 'init_s', 'avg_steps_per_s', 'steady_steps_per_s', 'first_call_s')})}")
+              f"{json.dumps({k: summary[k] for k in ('total_wall_s', 'init_s', 'avg_steps_per_s', 'steady_steps_per_s', 'first_call_s', 'iters_per_call', 'phases', 'phases_other_s')})}")
         res = eval_driver.run(eval_driver.parse_args(
             ["--run", run_dir, "--best", "--exact", "--episodes", "100"]))
         print(f"[solo run] exact eval of the best checkpoint: mean "
@@ -768,37 +792,39 @@ def phase_solo_run():
     return wall_ms / 1e3, eval_s
 
 
-def stopped_after(make_step, iters):
-    """A step factory like `make_step` whose steps raise KeyboardInterrupt
-    once a step has completed iteration iters + 1 (after its draws), as a
-    Ctrl-C inside that iteration would."""
-    def make(*args, **kw):
-        step = make_step(*args, **kw)
+def interrupted_replays(real, after):
+    """A stand-in for `learner._IterationGraph.replay` that raises
+    KeyboardInterrupt once `after` replays are done, as a Ctrl-C between
+    two replays of a call would."""
+    done = [0]
 
-        def interrupted(state, *a, **k):
-            out = step(state, *a, **k)
-            if out[0].iteration > iters:
-                raise KeyboardInterrupt
-            return out
-        return interrupted
-    return make
+    def replay(self, inputs):
+        out = real(self, inputs)
+        done[0] += 1
+        if done[0] == after:
+            raise KeyboardInterrupt
+        return out
+    return replay
 
 
 def phase_resume():
-    """Exact resume on the card.  Solo `tpu` preset: 6 iterations straight
-    against a 3-iteration run and a --resume to 6.  The population command
-    (P = 32, --anneal-lr, no re-eval, no polish): 3 iterations straight
-    against the same command stopped by a Ctrl-C in its third iteration
-    (its learning-rate schedule is sized by the budget, so the budget stays)
-    and a --resume.  The final params, Adam moments and env state must be
-    bit-identical."""
+    """Exact resume of runs of K > 1 iterations a call on the card.  Solo
+    `tpu` preset, 3 a call: 6 iterations straight against a 3-iteration
+    run and a --resume to 6.  The population command (P = 32, --anneal-lr,
+    no re-eval, no polish) at its default POP_K a call: 2 calls straight
+    against the same command stopped by a Ctrl-C after the third replay of
+    its second call (its learning-rate schedule is sized by the budget, so
+    the budget stays) and a --resume, which saves and resumes from the end
+    of the first call.  The final params, Adam moments and env state must
+    be bit-identical."""
     from acas2d_tpu_torch import train
-    from acas2d_tpu_torch.ppo import population
-    cases = (("solo", ["--preset", "tpu"], SOLO_B * 128, 6, 3),
+    from acas2d_tpu_torch.ppo import learner
+    cases = (("solo", ["--preset", "tpu", "--iters-per-call", "3"],
+              SOLO_B * 128, 6, 3),
              ("population", POP_ARGV + ["--reval-episodes", "0",
                                         "--polish-steps", "0"],
-              POP_B * 128, 3, 2))
-    real_step = population.make_population_step
+              POP_B * 128, 2 * POP_K, None))
+    real_replay = learner._IterationGraph.replay
     with tempfile.TemporaryDirectory() as out:
         for name, argv, batch, total, half in cases:
             def go(where, its, *extra):
@@ -809,15 +835,20 @@ def phase_resume():
                 return os.path.join(out, where, name, "checkpoints",
                                     str(its * batch), "state.pt")
             want = torch.load(go("straight", total), weights_only=True)
-            if name == "solo":
+            if half is not None:
                 go("split", half)
+                how = f"{half} iterations and a --resume"
             else:
-                population.make_population_step = stopped_after(real_step,
-                                                                half)
+                # the first call replays POP_K - 1 iterations after its
+                # eager first one; stop the second after 3 of its own
+                learner._IterationGraph.replay = interrupted_replays(
+                    real_replay, POP_K - 1 + 3)
                 try:
                     go("split", total)
                 finally:
-                    population.make_population_step = real_step
+                    learner._IterationGraph.replay = real_replay
+                how = (f"a run stopped by a Ctrl-C in its second call of "
+                       f"{POP_K} (after iteration {POP_K + 3}) and resumed")
             got = torch.load(go("split", total, "--resume"),
                              weights_only=True)
             leaves = {"params": (got["params"], want["params"]),
@@ -831,25 +862,30 @@ def phase_resume():
             check(not differ and got["adam"]["count"] == want["adam"]["count"]
                   and got["iteration"] == want["iteration"] == total,
                   f"{name} resume differs from the straight run in {differ}")
-            print(f"[resume] {name}: {half} iterations and a --resume to "
-                  f"{total} equal {total} straight, bit for bit "
-                  f"({len(leaves)} tensors)")
+            print(f"[resume] {name}: {how} to {total} equal {total} "
+                  f"straight, bit for bit ({len(leaves)} tensors)")
 
 
 PIPE_SEED = 3101
-PIPE_ITERS = 2 * (ITERS + 2)   # 2 attempts: 3 stage-1, 2 polish iterations
-PIPE_ARGV = (POP_ARGV[:POP_ARGV.index("--polish-rounds")]
-             + ["--polish-rounds", "2",
-                "--checkpoint-every", str(ITERS * POP_B * 128)])
+# 2 attempts of stage 1 and two polish stages, each one call of POP_K
+PIPE_ITERS = 2 * 3 * POP_K
+PIPE_ARGV = (POP_ARGV[:POP_ARGV.index("--total-steps")]
+             + ["--total-steps", str(POP_K * POP_B * 128)]
+             + POP_ARGV[POP_ARGV.index("--total-steps") + 2:
+                        POP_ARGV.index("--polish-steps")]
+             + ["--polish-steps", str(POP_K * POP_B * 128),
+                "--polish-pop", str(POLISH_POP), "--polish-rounds", "2",
+                "--checkpoint-every", str(POP_K * POP_B * 128)])
 PIPE_ARTIFACT = "artifacts/population/pipe5_s2101_population.json"
 
 
 def phase_pipeline(dev):
     """The shipped pipeline, `acas2d_tpu_torch.pipeline.run_pipeline`, at a
     cut budget into a temporary directory: stage 1 of the population
-    command at P = 32 x 1024 envs for 3 iterations (its eval fires in the
-    first), the re-eval cut to 64 episodes, two polish rounds of one
-    iteration at P = 16; a gate no policy reaches and two attempts, so the
+    command at P = 32 x 1024 envs for one call of its default POP_K
+    iterations (replays of a captured iteration; its eval fires after
+    it), the re-eval cut to 64 episodes, two polish rounds of one call
+    each at P = 16; a gate no policy reaches and two attempts, so the
     escalation and the best-across-attempts pick both run.  The launch
     counters are read around it (8 + 40 an iteration); 6 candidate dirs,
     each stage 1 among them; the merge record in each polish stage; the
@@ -875,8 +911,8 @@ def phase_pipeline(dev):
                     os.environ[k] = v
         launches = read_counts()
         print(f"[pipeline] launches over {PIPE_ITERS} iterations (2 "
-              f"attempts: {ITERS} at P={POP}, 2 polish at P={POLISH_POP}): "
-              f"{launches}; wall {ms / 1e3:.2f} s")
+              f"attempts: {POP_K} at P={POP}, 2 x {POP_K} polish at "
+              f"P={POLISH_POP}): {launches}; wall {ms / 1e3:.2f} s")
         check(launches == expected(policy_rollout=8 * PIPE_ITERS,
                                    ppo_grads=40 * PIPE_ITERS))
         names = [f"smoke_s{PIPE_SEED}", f"smoke_s{PIPE_SEED}_esc1"]
@@ -922,6 +958,151 @@ def phase_pipeline(dev):
               f"equal to the exact eval's; mean "
               f"{float(np.mean(ret)):.4f}, goals {int((outcome == 1).sum())}"
               f"/100; training wall {final['training_wall_s']} s")
+
+
+# ----------------------------------------------------------------- phase 15
+
+def leaves_differ(a, b):
+    """The names of the tensors one iteration hands the next that differ
+    between two states, and whether their generators do."""
+    from acas2d_tpu_torch.ppo import learner
+    names = (["params", "adam.mu", "adam.nu"]
+             + [f"env.{f}" for f in EnvState.__dataclass_fields__] + ["obs"])
+    out = [n for n, x, y in zip(names, learner._state_leaves(a),
+                                learner._state_leaves(b))
+           if not torch.equal(x, y)]
+    if any(not torch.equal(g.get_state(), h.get_state())
+           for g, h in zip(a.generators, b.generators)):
+        out.append("generators")
+    return out
+
+
+def replay_case(name, argv, pop):
+    """(K, init(), eager step, loop of K a call) of one of phase 15's
+    configurations, K `train.py`'s default on the card."""
+    from acas2d_tpu_torch import train
+    from acas2d_tpu_torch.ppo import learner, population
+    cfg = train.build_config(train.parse_args(argv))
+    K = train.resolve_iters_per_call(None, "tpu", torch.device("cuda"), cfg)
+    if pop:
+        return (K, lambda: population.init_population(cfg, DEFAULT_PARAMS,
+                                                      pop, "cuda"),
+                population.make_population_step(cfg, DEFAULT_PARAMS, "cuda"),
+                population.make_population_loop(cfg, DEFAULT_PARAMS, K,
+                                                "cuda"))
+    return (K, lambda: learner.init_train_state(cfg, DEFAULT_PARAMS, "cuda"),
+            learner.make_train_step(cfg, DEFAULT_PARAMS, "cuda"),
+            learner.make_train_loop(cfg, DEFAULT_PARAMS, K, "cuda"))
+
+
+def phase_replayed_loop():
+    """K iterations a call, replays of a captured iteration, against K
+    eager steps from the same state and generators: two calls against
+    2K steps, bit for bit (the tensors an iteration hands the next, the
+    Adam count, every metric, the generators), the launch counters read
+    around each call; each path's peak memory; then the two in turns
+    (eager, replayed, replayed, eager, twice), each timed from a synced
+    start to its synced end, in ms an iteration."""
+    cases = (("solo", ["--preset", "tpu"], 0),
+             ("members", POP_ARGV, POP),
+             ("solo bf16", ["--preset", "tpu", "--fused-update-bf16"], 0))
+    out = {}
+    for name, argv, pop in cases:
+        K, init, step, loop = replay_case(name, argv, pop)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        a, rows = init(), []
+        for _ in range(2 * K):
+            a, m = step(a)
+            rows.append(m)
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        b, calls = init(), []
+        for _ in range(2):
+            reset_counts()
+            b, m = loop(b)
+            launches = read_counts()
+            check(launches == expected(policy_rollout=8 * K,
+                                       ppo_grads=40 * K),
+                  f"{name}: a call of {K} launched {launches}")
+            calls.append(m)
+        replay_peak = torch.cuda.max_memory_allocated()
+        differ = leaves_differ(a, b)
+        differ += [k for k in rows[0] if not torch.equal(
+            torch.stack([r[k] for r in rows]),
+            torch.cat([c[k] for c in calls]))]
+        check(not differ and a.iteration == b.iteration == 2 * K
+              and a.opt_state.count == b.opt_state.count,
+              f"{name}: replayed and eager differ in {differ}")
+        ms = {"eager": [], "replayed": []}
+
+        def eager(state):
+            for _ in range(K):
+                state, _ = step(state)
+            return state
+        for _ in range(2):
+            for kind in ("eager", "replayed", "replayed", "eager"):
+                if kind == "eager":
+                    a, t = synced_ms(lambda: eager(a))
+                else:
+                    (b, _), t = synced_ms(lambda: loop(b))
+                ms[kind].append(t / K)
+        out[name] = (K, ms, eager_peak - base, replay_peak - base)
+        print(f"[replay] {name}: 2 calls of K={K} equal {2 * K} eager "
+              f"steps bit for bit (params, Adam moments and count, env "
+              f"state, obs, {len(rows[0])} metrics, generators); launches "
+              f"a call {launches}; ms an iteration, eager "
+              f"{[round(x, 2) for x in ms['eager']]}, replayed "
+              f"{[round(x, 2) for x in ms['replayed']]} (median "
+              f"{np.median(ms['eager']):.2f} / "
+              f"{np.median(ms['replayed']):.2f}); peak memory "
+              f"(max_memory_allocated, above the {base / 2**30:.3f} GiB "
+              f"held before) eager {(eager_peak - base) / 2**30:.3f} GiB, "
+              f"replayed {(replay_peak - base) / 2**30:.3f} GiB")
+    return out
+
+
+def phase_trace():
+    """`train --profile` (its trace of calls 2-4), solo at SOLO_K a call
+    (16 iterations) and the pipeline's population at POP_K (32 iterations,
+    no re-eval): the card's busy share of the traced window, the union of
+    its kernels' intervals over the span of the trace's events, which
+    holds only those calls (the one eval fires after the first)."""
+    from acas2d_tpu_torch import train
+    from acas2d_tpu_torch.utils import profiling
+    cases = (("solo", ["--preset", "tpu"], SOLO_K, SOLO_B * 128),
+             ("members", POP_ARGV + ["--reval-episodes", "0",
+                                     "--polish-steps", "0"],
+              POP_K, POP_B * 128))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv, K, batch in cases:
+            rows = train.run(train.parse_args(
+                argv + ["--iters-per-call", str(K), "--eval-every",
+                        str(10 ** 12), "--total-steps", str(4 * K * batch),
+                        "--profile", "--out-dir", tmp, "--run-name", name]))
+            check(len(rows) == 4 * K, f"{len(rows)} rows")
+            path = os.path.join(tmp, name, "trace", profiling.TRACE_FILE)
+            share, kernels, window = profiling.kernel_busy_share(path)
+            calls = [sum(r["seconds"] for r in rows[i * K:(i + 1) * K])
+                     for i in range(4)]
+            print(f"[trace] {name}, K={K}: calls 2-4 traced "
+                  f"({os.path.getsize(path) / 2**20:.1f} MiB), {kernels} "
+                  f"kernels over a {window / 1e3:.2f} ms window: the card "
+                  f"busy {share:.1%} of it; call ms {[round(c * 1e3, 2) for c in calls]}")
+            by_name = sorted(profiling.kernel_times(path).items(),
+                             key=lambda kv: -kv[1][0])
+            n_it = 3 * K
+            for kname, (us, n) in by_name[:8]:
+                print(f"[trace] {name}: {us / 1e3 / n_it:.3f} ms and "
+                      f"{n / n_it:.1f} launches an iteration: {kname[:90]}")
+            rest = sum(us for _, (us, _) in by_name[8:])
+            print(f"[trace] {name}: {rest / 1e3 / n_it:.3f} ms an iteration "
+                  f"in {len(by_name) - 8} other kernels")
+            out[name] = (share, kernels)
+    return out
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1083,10 +1264,11 @@ def phase_bench():
     reset_counts()
     bench.main(["--train"])
     launches = read_counts()
-    print(f"[bench] launches over --train (2 variants x 5 iterations): "
-          f"{launches}")
-    check(launches == expected(policy_rollout=2 * 5 * 8,
-                               ppo_grads=2 * 5 * 40))
+    iters = 2 * 5 + 2 * 5 * 32     # 2 variants x 5 calls of 1, 2 of 32
+    print(f"[bench] launches over --train (2 variants x 5 iterations, 2 "
+          f"variants x 5 calls of 32): {launches}")
+    check(launches == expected(policy_rollout=8 * iters,
+                               ppo_grads=40 * iters))
     return out
 
 
@@ -1215,7 +1397,8 @@ def phase_bf16_training():
     from acas2d_tpu_torch import train
     with tempfile.TemporaryDirectory() as out:
         argv = ["--preset", "tpu", "--fused-update-bf16",
-                "--total-steps", str(ITERS * SOLO_B * 128), "--out-dir", out]
+                "--total-steps", str(ITERS * SOLO_B * 128),
+                "--iters-per-call", "1", "--out-dir", out]
         reset_counts()
         rows = train.run(train.parse_args(argv))
         solo = read_counts()
@@ -1228,7 +1411,8 @@ def phase_bf16_training():
         argv = (POP_ARGV[:POP_ARGV.index("--total-steps")]
                 + ["--total-steps", str(POP_B * 128), "--eval-episodes", "4",
                    "--reval-episodes", "0", "--fused-update-bf16",
-                   "--out-dir", out, "--run-name", "pop_bf16"])
+                   "--iters-per-call", "1", "--out-dir", out,
+                   "--run-name", "pop_bf16"])
         reset_counts()
         prow = train.run(train.parse_args(argv))
         pop = read_counts()
@@ -1497,6 +1681,8 @@ def main() -> int:
     phase_solo_run()
     phase_resume()
     phase_pipeline(dev)
+    phase_replayed_loop()
+    phase_trace()
     cu, pt = "acas2d_tpu_torch/csrc/", "acas2d_tpu/ops/"
     rows = [
         ("policy_rollout", time_rollout,

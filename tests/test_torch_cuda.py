@@ -31,8 +31,10 @@ from acas2d_tpu_torch.oracle import MersenneSpawner
 from acas2d_tpu_torch.ops import (_cuda, env_rollout, policy_rollout,
                                   ppo_grads, precision_probe)
 from acas2d_tpu_torch.ops import step_math as sm
-from acas2d_tpu_torch.ppo import learner
+from acas2d_tpu_torch.ppo import learner, population
 from acas2d_tpu_torch.utils.params_io import load_flat_params
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 ROLLOUT_RTOL, ROLLOUT_ATOL = 1e-4, 1e-3
 GRAD_REL_TOL = 1e-4
@@ -447,6 +449,138 @@ def test_a_failed_capture_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         greedy(params, es, obs, DEFAULT_PARAMS)
     assert not greedy._graphs
+    torch.cuda.synchronize()
+
+
+# ------------------------------------ the rollout seed in device memory
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,B", [(1, 2048), (32, 1024)],
+                         ids=["solo", "members"])
+def test_seed_read_from_memory_equals_the_seed_by_value(cuda, P, B):
+    """The kernel reading its seed from a (1,) int32 tensor on the card
+    gives the bits of a build that takes it as a kernel argument
+    (`policy_ab`'s `seed_by_value` variant), and of an int seed."""
+    dirs = ab.source_dirs("policy", policy_ab.FILES, policy_ab.VARIANTS,
+                          ["seed_by_value"], {})
+    libs = ab.build("policy_rollout.cu",
+                    {"seed_by_value": dirs["seed_by_value"]}, "policy")
+    assert not policy_rollout.reads_seed(libs["seed_by_value"])
+    args = list(policy_ab.operands(cuda, P, B))
+    seed = args[6]
+    by_value = policy_rollout._rollout_cuda(*args,
+                                            lib=libs["seed_by_value"])
+    as_int = policy_rollout._rollout_cuda(*args)
+    args[6] = torch.tensor([seed], dtype=torch.int32, device=cuda)
+    in_memory = policy_rollout._rollout_cuda(*args)
+    for a, b, c in zip(in_memory, by_value, as_int):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+# --------------------------------- iterations per call as CUDA graphs
+
+def _loop_case(pop, bf16=False):
+    """(config, init(), eager step, loop of K = 3) at a small shape:
+    1024 envs x 32 steps (2 rollout launches), minibatch 8192, 2 epochs
+    (8 gradient launches an iteration)."""
+    argv = ["--preset", "tpu", "--n-envs", "1024", "--n-steps", "32",
+            "--minibatch-size", "8192", "--n-epochs", "2", "--anneal-lr",
+            "--total-steps", str(64 * 1024 * 32)] + (
+        ["--fused-update-bf16"] if bf16 else [])
+    cfg = train.build_config(train.parse_args(argv))
+    if pop:
+        return (cfg, lambda: population.init_population(
+                    cfg, DEFAULT_PARAMS, pop, "cuda"),
+                population.make_population_step(cfg, DEFAULT_PARAMS, "cuda"),
+                population.make_population_loop(cfg, DEFAULT_PARAMS, 3,
+                                                "cuda"))
+    return (cfg, lambda: learner.init_train_state(cfg, DEFAULT_PARAMS,
+                                                  "cuda"),
+            learner.make_train_step(cfg, DEFAULT_PARAMS, "cuda"),
+            learner.make_train_loop(cfg, DEFAULT_PARAMS, 3, "cuda"))
+
+
+class _HostCopies(TorchDispatchMode):
+    """Records each op that takes a tensor from the host to the card: a
+    copy from a CPU tensor, or any op that mixes a CPU tensor of one or
+    more dimensions with CUDA tensors."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        ins = [t for t in tree_leaves((args, kwargs)) if torch.is_tensor(t)]
+        outs = [t for t in tree_leaves(out) if torch.is_tensor(t)]
+        host = [t for t in ins if t.device.type == "cpu"]
+        card = [t for t in ins + outs if t.is_cuda]
+        if host and card and ("copy" in str(func)
+                              or any(t.dim() > 0 for t in host)):
+            self.seen.append(str(func))
+        return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pop,bf16", [(0, False), (4, False), (0, True)],
+                         ids=["solo", "p4", "solo_bf16"])
+def test_replayed_iterations_equal_eager_steps(cuda, pop, bf16,
+                                               monkeypatch):
+    """Two calls of K = 3 (the first: one eager iteration, the capture,
+    two replays; the second: three replays) equal six eager steps bit for
+    bit: params, Adam moments and count, env state, obs, every metric and
+    the generators.  The launch counters go up by K x (2 + 8) a call, and
+    no op inside the capture takes a tensor from the host."""
+    cfg, init, step, loop = _loop_case(pop, bf16)
+    a, rows = init(), []
+    for _ in range(6):
+        a, m = step(a)
+        rows.append(m)
+    guard = _HostCopies()
+    real = learner._IterationGraph.captured
+
+    def captured(self):
+        with guard:
+            return real(self)
+
+    monkeypatch.setattr(learner._IterationGraph, "captured", captured)
+    b, calls = init(), []
+    counters = (policy_rollout.fused_policy_rollout_members,
+                ppo_grads.ppo_minibatch_grads_members)
+    for _ in range(2):
+        n0 = [c.launches for c in counters]
+        b, m = loop(b)
+        torch.cuda.synchronize()
+        assert [c.launches - n for c, n in zip(counters, n0)] == [6, 24]
+        calls.append(m)
+    assert guard.seen == []
+    assert b.iteration == a.iteration == 6
+    assert b.opt_state.count == a.opt_state.count == 6 * 8
+    for x, y in zip(learner._state_leaves(a), learner._state_leaves(b)):
+        assert torch.equal(x, y)
+    for g, h in zip(a.generators, b.generators):
+        assert torch.equal(g.get_state(), h.get_state())
+    for k in rows[0]:
+        assert torch.equal(torch.stack([r[k] for r in rows]),
+                           torch.cat([c[k] for c in calls])), k
+    assert len(loop._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_a_failed_iteration_capture_raises(cuda, monkeypatch):
+    """A host sync inside the iteration cannot be captured: the call
+    raises, keeps no graph and does not fall back to the eager loop."""
+    cfg, init, step, loop = _loop_case(0)
+    real = learner.compute_gae
+
+    def syncs(rewards, *args):
+        float(rewards.sum())
+        return real(rewards, *args)
+
+    monkeypatch.setattr(learner, "compute_gae", syncs)
+    with pytest.raises(RuntimeError):
+        loop(init())
+    assert not loop._graphs
     torch.cuda.synchronize()
 
 

@@ -247,8 +247,7 @@ def _jax_summary_keys():
 
 def test_summary_has_jax_keys(solo, population_straight):
     jax_keys = _jax_summary_keys()
-    left_out = {"compile_cache", "phases", "phases_other_s",
-                "iters_per_call", "n_devices"}
+    left_out = {"compile_cache", "n_devices"}
     population_only = {"aggregate_steps_per_s", "population_selection"}
     assert left_out | population_only <= jax_keys
     with open(solo[0] / "summary.json") as f:
@@ -257,6 +256,10 @@ def test_summary_has_jax_keys(solo, population_straight):
                             | {"device"})
     assert summary["population"] is None and summary["device"] == "cpu"
     assert summary["global_step"] == summary["steps_this_process"] == 4 * B
+    assert summary["iters_per_call"] == 1          # JAX's default on a CPU
+    assert {"dispatch_s", "train_first_call_s", "train_step_s", "log_s",
+            "checkpoint_s", "eval_s", "best_ckpt_s"} <= set(summary["phases"])
+    assert summary["phases"]["train_step_calls"] == 3
     assert summary["argv"][:len(SOLO)] == SOLO
     with open(population_straight / "summary.json") as f:
         summary = json.load(f)

@@ -67,11 +67,11 @@ def test_iteration_seconds_include_the_metrics_read(tmp_path):
     def step(s):
         return s.replace(iteration=s.iteration + 1), {}
 
-    def make_row(metrics):
+    def make_rows(metrics):
         time.sleep(0.05)                  # a slow metrics read
-        return {}
+        return [{}]
 
-    _, rows = r.loop(state, step, make_row, 1000, lambda s, g: ({}, {}))
+    _, rows = r.loop(state, step, make_rows, 1000, lambda s, g: ({}, {}))
     assert len(rows) == ITERS
     for row in rows:
         assert row["seconds"] >= 0.05
@@ -137,8 +137,7 @@ def test_driver_spends_a_budget_that_is_not_a_multiple_of_the_batch(
     assert opt.step_size(2 * opt.total_updates) == 0.0
 
 
-@pytest.mark.parametrize("flag", [["--iters-per-call", "4"],
-                                  ["--gpus", "2"]])
+@pytest.mark.parametrize("flag", [["--gpus", "2"]])
 def test_driver_does_not_know_unported_modes(flag, capsys):
     with pytest.raises(SystemExit):
         train.parse_args(TINY + flag)
