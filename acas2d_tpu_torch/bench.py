@@ -24,12 +24,14 @@ times `iters` chained launches and ends in a host transfer of the last
 stats, which cannot complete before the launches that produce them.
 
 `--train` measures PPO training at the `tpu` preset shape (2048 envs x 128
-steps, minibatch 65,536) for the variants the port has: one iteration a
-call, `fused_rollout+update` and `fused_rollout+update_bf16`, and 32
-iterations a call (`learner.make_train_loop`, replays of a captured
-iteration on the card), `fused_rollout+update+loop32` and
-`fused_rollout+update_bf16+loop32`.  The JAX variants it lacks are listed
-under `not_ported` with their ROADMAP item.
+steps, minibatch 65,536) for JAX's variants (bench.py:442-497): one
+iteration a call, `xla` (the step-by-step rollout and the autograd
+update), `fused_rollout` (with the autograd update),
+`fused_rollout+update` and `fused_rollout+update_bf16`, and 32 iterations
+a call (`learner.make_train_loop`, replays of a captured iteration on the
+card), `fused_rollout+loop32`, `fused_rollout+update+loop32` and
+`fused_rollout+update_bf16+loop32`.  At 2048 envs on the card it adds
+JAX's `best_case_4096`, `fused_rollout+loop32` at 4096 envs.
 `--multi-traffic N` measures the general engine (`envs/core.py`, eager
 torch) at max_traffic N against 1, as the JAX bench does.
 
@@ -68,18 +70,15 @@ REFERENCE_STEPS_PER_S = 100.0   # settings.py:17 FPS cap
 REFERENCE_TRAIN_STEPS_PER_S = 71.4   # the reference's end-to-end rate
 SEED = 7
 
-# JAX --train variants the port lacks, with the ROADMAP item that ports them
-NOT_PORTED = {
-    "xla": "A5b (unfused rollout and autograd update)",
-    "fused_rollout": "A5b (autograd update)",
-    "fused_rollout+loop32": "A5b (autograd update)",
-    "best_case_4096": "A5b (fused_rollout+loop32 at 4096 envs)",
-}
-# the --train variants: (label, bf16 update, iterations a call)
-TRAIN_VARIANTS = (("fused_rollout+update", False, 1),
-                  ("fused_rollout+update_bf16", True, 1),
-                  ("fused_rollout+update+loop32", False, 32),
-                  ("fused_rollout+update_bf16+loop32", True, 32))
+# the --train variants: (label, fused rollout, fused update, bf16 update,
+# iterations a call)
+TRAIN_VARIANTS = (("xla", False, False, False, 1),
+                  ("fused_rollout", True, False, False, 1),
+                  ("fused_rollout+loop32", True, False, False, 32),
+                  ("fused_rollout+update", True, True, False, 1),
+                  ("fused_rollout+update_bf16", True, True, True, 1),
+                  ("fused_rollout+update+loop32", True, True, False, 32),
+                  ("fused_rollout+update_bf16+loop32", True, True, True, 32))
 
 
 def device_label(dev: torch.device) -> str:
@@ -162,12 +161,13 @@ def measure(B: int = 262144, T: int = 256, iters: int = 8, repeats: int = 3,
 
 
 def measure_train_at(n_envs: int, n_steps: int, iters: int = 2,
-                     repeats: int = 2, bf16_update: bool = False,
+                     repeats: int = 2, fused_rollout: bool = True,
+                     fused_update: bool = True, bf16_update: bool = False,
                      minibatch: int = 0, loop_k: int = 1,
                      device=None) -> float:
-    """PPO training (fused rollout + GAE + 10 epochs of fused minibatch
-    gradients and Adam): one iteration a call through
-    `learner.make_train_step`, or `loop_k` > 1 a call through
+    """PPO training (rollout + GAE + 10 epochs of minibatch gradients and
+    Adam, each rollout and update fused or not): one iteration a call
+    through `learner.make_train_step`, or `loop_k` > 1 a call through
     `learner.make_train_loop`; best env-steps/s of `repeats` runs of
     `iters` calls, after one call (bench.py:measure_train_at on one
     device)."""
@@ -181,8 +181,8 @@ def measure_train_at(n_envs: int, n_steps: int, iters: int = 2,
         minibatch = (65536 if batch % 65536 == 0 and batch >= 65536
                      else max(64, batch // 8))
     cfg = PPOConfig(n_envs=n_envs, n_steps=n_steps, minibatch_size=minibatch,
-                    total_timesteps=batch, fused_rollout=True,
-                    fused_chunk=min(16, n_steps), fused_update=True,
+                    total_timesteps=batch, fused_rollout=fused_rollout,
+                    fused_chunk=min(16, n_steps), fused_update=fused_update,
                     fused_update_bf16=bf16_update)
     if loop_k > 1:
         step = learner.make_train_loop(cfg, DEFAULT_PARAMS, loop_k, dev)
@@ -205,15 +205,17 @@ def measure_train_at(n_envs: int, n_steps: int, iters: int = 2,
 
 def train_main(args) -> Dict:
     """--train: end-to-end PPO training env-steps/s at the tpu preset shape
-    (bench.py:train_main) for the variants the port has."""
+    (bench.py:train_main), and at 2048 envs on the card the 4096-env best
+    case, reported apart, as JAX does."""
     dev = resolve_device(args.device)
     rows = {}
-    for label, bf16, loop_k in TRAIN_VARIANTS:
+    for label, rollout, update, bf16, loop_k in TRAIN_VARIANTS:
         rows[label] = round(measure_train_at(
-            args.train_envs, args.train_steps, bf16_update=bf16,
+            args.train_envs, args.train_steps, fused_rollout=rollout,
+            fused_update=update, bf16_update=bf16,
             minibatch=args.train_minibatch, loop_k=loop_k, device=dev), 1)
     best = max(rows.values())
-    return {
+    out = {
         "metric": "end-to-end PPO training env-steps/s at the shipped tpu "
                   "preset shape (rollout+GAE+update)",
         "value": best,
@@ -221,9 +223,13 @@ def train_main(args) -> Dict:
         "vs_baseline": round(best / REFERENCE_TRAIN_STEPS_PER_S, 1),
         "n_envs": args.train_envs,
         "paths": rows,
-        "not_ported": dict(NOT_PORTED),
         "device": device_label(dev),
     }
+    if args.train_envs == 2048 and dev.type == "cuda":
+        out["best_case_4096"] = round(measure_train_at(
+            4096, args.train_steps, fused_update=False, loop_k=32,
+            device=dev), 1)
+    return out
 
 
 def multi_traffic_main(args) -> Dict:

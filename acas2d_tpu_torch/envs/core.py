@@ -9,8 +9,9 @@ function takes and returns `(B,)`-batched tensors directly:
     reset(n, params, generator)             -> (state, obs)
     reset_from(psi, tx, ty, tv, tpsi, nt)   -> (state, obs)   (Mersenne parity)
     step(state, action, params)             -> (state, StepOutput)
-    step_autoreset(state, action, params, generator)
+    step_autoreset(state, action, params, generator, fresh)
                                             -> same, terminated envs respawn
+    spawn_from_uniforms(u, params)          -> state   (draws made elsewhere)
 
 Reference semantics (parity contract of the JAX package):
   * step order: action -> integrate player, then traffic -> observe
@@ -129,6 +130,69 @@ def _uniform(generator: torch.Generator, shape, lo: float, hi: float):
     return lo + (hi - lo) * u
 
 
+def spawn_width(params: EnvParams) -> int:
+    """Uniforms one spawn takes (`spawn_from_uniforms`): the traffic count,
+    the player's heading jitter, slot 0's corner, speed and heading jitter,
+    and x, y, speed and heading of each further slot."""
+    return 5 + 4 * (params.max_traffic - 1)
+
+
+def _goal_bearing(p: EnvParams) -> float:
+    return kin.relative_angle(
+        torch.tensor(p.player_x0, dtype=torch.float64),
+        torch.tensor(p.player_y0, dtype=torch.float64),
+        torch.tensor(p.goal_x, dtype=torch.float64),
+        torch.tensor(p.goal_y, dtype=torch.float64)).item()
+
+
+def _spawned(p: EnvParams, num_traffic, u_psi, starts_down, u_v0, u_h0,
+             u_rest, dtype, device) -> EnvState:
+    """The spawn of game.py:41,88-114 from its draws: the traffic count
+    (int), slot 0's corner (0. or 1.), float64 uniforms in [0, 1) of the
+    player's heading jitter and slot 0's speed and heading jitter (n,)
+    each, and x, y, speed and heading of the further slots (4, n,
+    max_traffic - 1), or None for one slot."""
+    n = num_traffic.shape[0]
+    lim = p.player_initial_heading_lim
+    ppsi = torch.remainder(_goal_bearing(p) + (-lim + 2 * lim * u_psi), 360)
+
+    def scaled(u, lo, hi):
+        return lo + (hi - lo) * u
+
+    # Traffic slot 0 (game.py:98-106): right edge, top or bottom corner.
+    t0x = torch.full((n,), p.width - p.collision_radius,
+                     dtype=torch.float64, device=starts_down.device)
+    t0y = p.collision_radius + starts_down * (p.height - 2 * p.collision_radius)
+    t0v = scaled(u_v0, p.airspeed_factor_min,
+                 p.airspeed_factor_max) * p.airspeed
+    tlim = p.traffic_initial_heading_lim
+    t0psi = torch.remainder(145 + starts_down * 70 + scaled(u_h0, -tlim, tlim),
+                            360)
+    tx, ty, tv, tpsi = (t0x[:, None], t0y[:, None], t0v[:, None],
+                        t0psi[:, None])
+    if u_rest is not None:
+        # Slots >= 1 (game.py:107-114): uniform over the upper airspace.
+        rx, ry, rv, rpsi = u_rest
+        tx = torch.cat([tx, scaled(rx, 0.0, p.width - p.aircraft_size)], 1)
+        ty = torch.cat([ty, scaled(ry, 0.0, 3 * p.height / 5)], 1)
+        tv = torch.cat([tv, scaled(rv, p.airspeed_factor_min,
+                                   p.airspeed_factor_max) * p.airspeed], 1)
+        tpsi = torch.cat([tpsi, scaled(rpsi, 0.0, 360.0)], 1)
+
+    def f(x):
+        return x.to(device=device, dtype=dtype)
+
+    zeros = torch.zeros(n, dtype=dtype, device=device)
+    zeros_i = torch.zeros(n, dtype=torch.int32, device=device)
+    return EnvState(
+        px=torch.full((n,), p.player_x0, dtype=dtype, device=device),
+        py=torch.full((n,), p.player_y0, dtype=dtype, device=device),
+        ppsi=f(ppsi), pa_lat=zeros,
+        tx=f(tx), ty=f(ty), tv=f(tv), tpsi=f(tpsi),
+        num_traffic=num_traffic.to(device=device, dtype=torch.int32),
+        steps=zeros_i, total_reward=zeros.clone(), outcome=zeros_i.clone())
+
+
 def spawn(n: int, params: EnvParams = DEFAULT_PARAMS,
           generator: Optional[torch.Generator] = None,
           dtype=torch.float32, device=None) -> EnvState:
@@ -144,51 +208,35 @@ def spawn(n: int, params: EnvParams = DEFAULT_PARAMS,
     g = generator if generator is not None else torch.Generator()
     num_traffic = torch.randint(p.min_traffic, p.max_traffic + 1, (n,),
                                 generator=g, device=g.device)
-
-    bearing = kin.relative_angle(
-        torch.tensor(p.player_x0, dtype=torch.float64),
-        torch.tensor(p.player_y0, dtype=torch.float64),
-        torch.tensor(p.goal_x, dtype=torch.float64),
-        torch.tensor(p.goal_y, dtype=torch.float64)).item()
-    lim = p.player_initial_heading_lim
-    ppsi = torch.remainder(bearing + _uniform(g, (n,), -lim, lim), 360)
-
-    # Traffic slot 0 (game.py:98-106): right edge, top or bottom corner.
+    u_psi = _uniform(g, (n,), 0.0, 1.0)
     starts_down = torch.randint(0, 2, (n,), generator=g,
                                 device=g.device).to(torch.float64)
-    t0x = torch.full((n,), p.width - p.collision_radius, dtype=torch.float64,
-                     device=g.device)
-    t0y = p.collision_radius + starts_down * (p.height - 2 * p.collision_radius)
-    t0v = _uniform(g, (n,), p.airspeed_factor_min,
-                   p.airspeed_factor_max) * p.airspeed
-    tlim = p.traffic_initial_heading_lim
-    t0psi = torch.remainder(145 + starts_down * 70
-                            + _uniform(g, (n,), -tlim, tlim), 360)
+    u_v0 = _uniform(g, (n,), 0.0, 1.0)
+    u_h0 = _uniform(g, (n,), 0.0, 1.0)
+    rest = (n, p.max_traffic - 1)
+    u_rest = ([_uniform(g, rest, 0.0, 1.0) for _ in range(4)]
+              if p.max_traffic > 1 else None)
+    return _spawned(p, num_traffic, u_psi, starts_down, u_v0, u_h0, u_rest,
+                    dtype, device)
 
-    T = p.max_traffic
-    tx, ty, tv, tpsi = (t0x[:, None], t0y[:, None], t0v[:, None],
-                        t0psi[:, None])
-    if T > 1:
-        # Slots >= 1 (game.py:107-114): uniform over the upper airspace.
-        rest = (n, T - 1)
-        tx = torch.cat([tx, _uniform(g, rest, 0.0, p.width - p.aircraft_size)], 1)
-        ty = torch.cat([ty, _uniform(g, rest, 0.0, 3 * p.height / 5)], 1)
-        tv = torch.cat([tv, _uniform(g, rest, p.airspeed_factor_min,
-                                     p.airspeed_factor_max) * p.airspeed], 1)
-        tpsi = torch.cat([tpsi, _uniform(g, rest, 0.0, 360.0)], 1)
 
-    def f(x):
-        return x.to(device=device, dtype=dtype)
-
-    zeros = torch.zeros(n, dtype=dtype, device=device)
-    zeros_i = torch.zeros(n, dtype=torch.int32, device=device)
-    return EnvState(
-        px=torch.full((n,), p.player_x0, dtype=dtype, device=device),
-        py=torch.full((n,), p.player_y0, dtype=dtype, device=device),
-        ppsi=f(ppsi), pa_lat=zeros,
-        tx=f(tx), ty=f(ty), tv=f(tv), tpsi=f(tpsi),
-        num_traffic=num_traffic.to(device=device, dtype=torch.int32),
-        steps=zeros_i, total_reward=zeros.clone(), outcome=zeros_i.clone())
+def spawn_from_uniforms(u: torch.Tensor, params: EnvParams = DEFAULT_PARAMS,
+                        dtype=torch.float32) -> EnvState:
+    """Spawn u.shape[0] episodes from (n, `spawn_width`) uniforms in [0, 1)
+    on their device: the spawn distributions of `spawn`, each draw taken
+    from its own column (the traffic count and slot 0's corner by
+    thresholds).  The unfused rollout's respawns (`step_autoreset`'s
+    `fresh`) come from uniforms drawn on the card."""
+    p = params
+    u = u.to(torch.float64)
+    span = p.max_traffic - p.min_traffic + 1
+    num_traffic = torch.clamp(p.min_traffic + torch.floor(u[:, 0] * span),
+                              max=p.max_traffic).to(torch.int32)
+    starts_down = (u[:, 2] < 0.5).to(torch.float64)
+    u_rest = (u[:, 5:].reshape(-1, 4, p.max_traffic - 1).unbind(1)
+              if p.max_traffic > 1 else None)
+    return _spawned(p, num_traffic, u[:, 1], starts_down, u[:, 3], u[:, 4],
+                    u_rest, dtype, u.device)
 
 
 def reset(n: int, params: EnvParams = DEFAULT_PARAMS,
@@ -288,15 +336,19 @@ def step(state: EnvState, action, params: EnvParams = DEFAULT_PARAMS
 
 
 def step_autoreset(state: EnvState, action, params: EnvParams = DEFAULT_PARAMS,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   fresh: Optional[Tuple[EnvState, torch.Tensor]] = None
                    ) -> Tuple[EnvState, StepOutput]:
     """step() with masked auto-reset (SB3 DummyVecEnv semantics): a
-    terminated env respawns at once with draws from `generator`, and its
-    returned obs is the reset observation; reward/done/outcome describe the
-    terminated episode."""
+    terminated env respawns at once, and its returned obs is the reset
+    observation; reward/done/outcome describe the terminated episode.
+    The respawns are `fresh`, a reset batch (state, obs) made beforehand,
+    else drawn from `generator`."""
     stepped, out = step(state, action, params)
-    fresh, fresh_obs = reset(state.px.shape[0], params, generator,
-                             dtype=state.px.dtype, device=state.px.device)
+    if fresh is None:
+        fresh = reset(state.px.shape[0], params, generator,
+                      dtype=state.px.dtype, device=state.px.device)
+    fresh, fresh_obs = fresh
     next_state = fresh.select(out.done, stepped)
     out = out.replace(obs=torch.where(out.done[:, None], fresh_obs, out.obs))
     return next_state, out

@@ -34,8 +34,10 @@ def step_batch(states: EnvState, actions: torch.Tensor,
 
 def step_autoreset_batch(states: EnvState, actions: torch.Tensor,
                          params: EnvParams = DEFAULT_PARAMS,
-                         generator: Optional[torch.Generator] = None
+                         generator: Optional[torch.Generator] = None,
+                         fresh: Optional[Tuple[EnvState, torch.Tensor]] = None
                          ) -> Tuple[EnvState, StepOutput]:
     """`core.step_autoreset` over the batch: actions (B,); terminated envs
-    respawn with draws from `generator` (on the batch's device for speed)."""
-    return core.step_autoreset(states, actions, params, generator)
+    respawn as `fresh` (a reset batch made beforehand), else with draws
+    from `generator` (on the batch's device for speed)."""
+    return core.step_autoreset(states, actions, params, generator, fresh)

@@ -81,8 +81,9 @@ def parse_args(argv=None):
 
 
 def load_params(args) -> torch.Tensor:
-    """The (N_PARAMS,) float32 params of --params-npz or of a --run
-    checkpoint (whose iteration goes to stderr, as JAX eval.py prints it)."""
+    """The (N_PARAMS,) params of --params-npz (float32) or of a --run
+    checkpoint, in the run's dtype (its iteration goes to stderr, as JAX
+    eval.py prints it)."""
     if args.params_npz:
         model = ActorCritic()
         model.load_state_dict(

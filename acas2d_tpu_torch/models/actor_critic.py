@@ -145,6 +145,14 @@ def gaussian_entropy(log_std):
     return (0.5 * (1.0 + LOG_2PI) + log_std).sum(-1)
 
 
+def sample_action(mean, log_std, noise):
+    """Reparameterised sample mean + exp(log_std) * noise, with the standard
+    normal `noise` an input (JAX draws it inside from a key).  NOT clipped:
+    log-probs are taken of the raw sample, and the env receives a clipped
+    copy (SB3 collect_rollouts)."""
+    return mean + torch.exp(log_std) * noise
+
+
 def split_flat(flat: torch.Tensor):
     """Views of a flat (N_PARAMS,) vector of the default architecture:
     ((W1, b1, W2, b2, w_head, b_head) of the pi tower, the same of the vf
@@ -196,3 +204,10 @@ def members_forward(params: torch.Tensor, obs: torch.Tensor
         h2 = torch.tanh(torch.baddbmm(b2[:, None], h1, w2.transpose(1, 2)))
         outs.append(torch.bmm(h2, wh.reshape(P, HIDDEN, 1))[..., 0] + bh)
     return outs[0], outs[1]
+
+
+def members_log_std(params: torch.Tensor) -> torch.Tensor:
+    """Each member's log_std (P,) of params (P, N_PARAMS), clamped to
+    [-4, 2] with the straight-through gradient of `ActorCritic.forward`."""
+    log_std = params[:, -1]
+    return log_std + (torch.clamp(log_std, -4.0, 2.0) - log_std).detach()

@@ -55,26 +55,37 @@ def _triple32(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _term(v, c: int):
+    """(v * c) mod 2^32 of an int or an integer tensor (its 32-bit
+    pattern)."""
+    if isinstance(v, torch.Tensor):
+        return _mul32(v.to(torch.int64) & M32, c)
+    return ((int(v) & M32) * c) & M32
+
+
 def rng_base(seed, env_ids: torch.Tensor) -> torch.Tensor:
     """Per-env RNG base of the kernels (pallas_policy.py:89-95): env e is
     lane e % 1024 of program e // 1024, and the base is
     seed*0x9E3779B9 + program*0xC2B2AE35 + lane*0x27D4EB2F mod 2^32, the
-    seed taken as its int32 bit pattern."""
+    seed taken as its int32 bit pattern.  `seed`: an int, or an integer
+    tensor that broadcasts against `env_ids` (a (1,) seed on the card,
+    which a CUDA graph's replays read anew)."""
     ids = env_ids.to(torch.int64)
-    s = ((int(seed) & M32) * 0x9E3779B9) & M32
-    return (s + _mul32(ids // LANES, 0xC2B2AE35)
+    return (_term(seed, 0x9E3779B9) + _mul32(ids // LANES, 0xC2B2AE35)
             + _mul32(ids % LANES, 0x27D4EB2F)) & M32
 
 
+def hash32(base: torch.Tensor, step, salt) -> torch.Tensor:
+    """triple32(base + step*0x7FEB352D + salt*0x85EBCA6B), in [0, 2^32)
+    held in int64 (pallas_step.py:60)."""
+    return _triple32((base + _term(step, 0x7FEB352D)
+                      + _term(salt, 0x85EBCA6B)) & M32)
+
+
 def _u01_hash(base: torch.Tensor, step, salt) -> torch.Tensor:
-    """Float32 uniform in [0, 1): the top 24 bits of
-    triple32(base + step*0x7FEB352D + salt*0x85EBCA6B) (pallas_step.py:60)."""
-    def term(v, c):
-        if isinstance(v, torch.Tensor):
-            return _mul32(v.to(torch.int64) & M32, c)
-        return ((int(v) & M32) * c) & M32
-    x = (base + term(step, 0x7FEB352D) + term(salt, 0x85EBCA6B)) & M32
-    return (_triple32(x) >> 8).to(torch.float32) * f32(1.0 / (1 << 24))
+    """Float32 uniform in [0, 1): the top 24 bits of `hash32`."""
+    return (hash32(base, step, salt) >> 8).to(torch.float32) * f32(
+        1.0 / (1 << 24))
 
 
 # ------------------------------------------------------------- arctan

@@ -1,14 +1,22 @@
-"""PPO learner: fused rollout collection, GAE, clipped-PPO epochs with Adam,
-and greedy evaluation.
+"""PPO learner: rollout collection, GAE, clipped-PPO epochs with Adam, and
+greedy evaluation.
 
-Counterpart of `acas2d_tpu/ppo/learner.py` on its fused path
-(`fused_rollout=True, fused_update=True`, with or without
-`fused_update_packed` and `fused_update_bf16`): the rollout is n_steps/K launches of the
-policy-in-kernel rollout (ops/policy_rollout.py), and every minibatch
-gradient is one launch of the fused PPO-gradient kernel (ops/ppo_grads.py).
-The update (`ppo_update_members`) and the optimizer work on a leading
-member axis, which is 1 for solo training and P for a population
-(ppo/population.py).
+Counterpart of `acas2d_tpu/ppo/learner.py` on all four of its paths, as
+`PPOConfig.fused_rollout` and `fused_update` choose them:
+
+  * the fused rollout is n_steps/K launches of the policy-in-kernel rollout
+    (ops/policy_rollout.py); the unfused one (`collect_rollout`, JAX's
+    default) steps the batch-native env core n_steps times, with the
+    policy, the Gaussian sample and the respawns as tensor code, in the
+    state's dtype (float32 or float64);
+  * the fused update takes every minibatch gradient in one launch of the
+    fused PPO-gradient kernel (ops/ppo_grads.py, `fused_update_packed`
+    and `fused_update_bf16` included); the unfused one differentiates
+    `ppo_loss` with autograd (JAX's `jax.grad`).
+
+The update (`ppo_update_members`), the unfused rollout
+(`rollout_members`) and the optimizer work on a leading member axis,
+which is 1 for solo training and P for a population (ppo/population.py).
 Optimisation semantics replicate SB3 PPO as the JAX package does: raw
 gaussian samples keep their log-probs while the env receives clipped
 actions; advantages are normalised per minibatch; value loss is unclipped
@@ -22,9 +30,14 @@ operand without packing: the JAX package's packed-parameter update
 operands and masks their off-diagonal gradients) is therefore the same
 update as the fused one here.  Randomness comes from the TrainState's explicit
 `torch.Generator`: one rollout seed per iteration and one block permutation
-per epoch.  A caller may pass both (`seed=`, `perms=`) to replay another
-run's draws — the parity tests pass the draws the JAX learner derives from
-its key.
+per epoch.  The unfused rollout's action noise and respawn uniforms come
+from that seed through the kernels' counter-based hash, made on the
+state's device at the iteration's start (`rollout_draws`), so an iteration
+draws no more from the generator on either rollout path.  A caller may
+pass the draws (`seed=`, `perms=`, and for the unfused rollout `draws=`)
+to replay another run's: the parity tests pass the draws the JAX learner
+derives from its key.  JAX's unfused rollout draws from threefry, so the
+two agree by distribution, not bit for bit.
 
 `make_train_loop` runs K iterations a call (JAX `make_train_loop`, train.py
 --iters-per-call): on the card as K replays of one iteration captured as a
@@ -36,6 +49,7 @@ Either equals K eager steps bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,10 +58,12 @@ import torch
 from acas2d_tpu_torch import resolve_device
 from acas2d_tpu_torch.config import EnvParams
 from acas2d_tpu_torch.envs import core, vector
-from acas2d_tpu_torch.models.actor_critic import (ActorCritic, apply_flat,
-                                                  flatten, members_forward)
+from acas2d_tpu_torch.models.actor_critic import (
+    ActorCritic, apply_flat, flatten, gaussian_entropy, gaussian_log_prob,
+    members_forward, members_log_std, sample_action)
 from acas2d_tpu_torch.oracle import MersenneSpawner
 from acas2d_tpu_torch.ops import policy_rollout, ppo_grads
+from acas2d_tpu_torch.ops import step_math as sm
 from acas2d_tpu_torch.ops.policy_rollout import (fused_policy_rollout,
                                                  seed_int32)
 from acas2d_tpu_torch.ops.ppo_grads import ppo_minibatch_grads_members
@@ -103,11 +119,13 @@ class Optimizer:
     flat parameter vector, with optax's arithmetic: updates are scaled by
     max_norm / g_norm only when g_norm >= max_norm (no epsilon), Adam's
     denominator is sqrt(nu_hat) + eps, bias corrections are computed in
-    float64 and rounded to float32, and the optional linear LR anneal is
+    float64 and rounded to the params' dtype (as optax under x64 casts
+    them to each moment's dtype), and the optional linear LR anneal is
     optax.linear_schedule(lr, 0, total_updates) on the pre-step count.
 
     A step's scalars (both bias corrections and the negated step size) come
-    as a float32 tensor on the gradients' device (`scalars`), so that a
+    as a tensor of the params' dtype on the gradients' device
+    (`scalars`), so that a
     CUDA graph's replay takes each step's own, and the moments are divided
     by them as tensors: a true division, as optax's `mu / (1 - b1**count)`
     (PyTorch's CUDA division by a Python number multiplies by its
@@ -131,15 +149,16 @@ class Optimizer:
         frac = 1.0 - min(max(count, 0), self.total_updates) / self.total_updates
         return self.lr * frac
 
-    def scalars(self, count: int, n: int) -> torch.Tensor:
-        """The scalars of the n steps from Adam count `count` on, (n, 3)
-        float32 on the CPU: each step's bias corrections 1 - b1**c and
-        1 - b2**c (c its post-step count) and its negated step size, in
-        float64, rounded to float32."""
+    def scalars(self, count: int, n: int,
+                dtype=torch.float32) -> torch.Tensor:
+        """The scalars of the n steps from Adam count `count` on, (n, 3) on
+        the CPU: each step's bias corrections 1 - b1**c and 1 - b2**c (c
+        its post-step count) and its negated step size, in float64,
+        rounded to `dtype` (the params')."""
         return torch.tensor(
             [(1 - self.b1 ** (c + 1), 1 - self.b2 ** (c + 1),
               -self.step_size(c)) for c in range(count, count + n)],
-            dtype=torch.float64).view(n, 3).to(torch.float32)
+            dtype=torch.float64).view(n, 3).to(dtype)
 
     def update(self, grads: torch.Tensor, state: AdamState,
                scalars: Optional[torch.Tensor] = None
@@ -149,7 +168,8 @@ class Optimizer:
         row of `scalars(state.count, ...)` on the gradients' device (by
         default made here)."""
         if scalars is None:
-            scalars = self.scalars(state.count, 1)[0].to(grads.device)
+            scalars = self.scalars(state.count, 1,
+                                   grads.dtype)[0].to(grads.device)
         g_norm = torch.sqrt(torch.sum(grads * grads, dim=-1, keepdim=True))
         grads = torch.where(g_norm < self.max_norm, grads,
                             (grads / g_norm) * self.max_norm)
@@ -163,14 +183,16 @@ class Optimizer:
 
 
 def init_train_state(cfg: PPOConfig, env_params: EnvParams, device=None,
-                     seed: Optional[int] = None) -> TrainState:
+                     seed: Optional[int] = None,
+                     dtype=torch.float32) -> TrainState:
     """Fresh policy (SB3 init), Adam state and env batch, all drawn from one
-    generator seeded with `seed` (default cfg.seed)."""
+    generator seeded with `seed` (default cfg.seed), in `dtype`: a float64
+    state starts from the float32 run's policy and spawns, widened."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
-    params = flatten(ActorCritic(generator=gen)).to(dev)
+    params = flatten(ActorCritic(generator=gen)).to(dev, dtype)
     env_state, obs = vector.reset_batch(cfg.n_envs, env_params, gen,
-                                        torch.float32, dev)
+                                        dtype, dev)
     return TrainState(params=params, opt_state=Optimizer(cfg).init(params),
                       env_state=env_state, obs=obs, generator=gen)
 
@@ -308,6 +330,209 @@ def collect_rollout_fused(model: ActorCritic, state: TrainState,
     return new_state, batch, last_value, metrics
 
 
+# The unfused rollout's draws: the counter-based hash of the kernels
+# (ops/step_math.py) with salts of their own.  Box-Muller takes salts 4 and
+# 5, the policy rollout kernel's, so that in float32 the action noise of a
+# seed is the fused rollout's; the respawn uniforms take SPAWN_SALT on.
+NOISE_SALTS = (4, 5)
+SPAWN_SALT = 8
+LOW_BITS_SALT = 64     # float64: the salt offset of a uniform's low 29 bits
+
+
+@dataclasses.dataclass
+class RolloutDraws:
+    """The random draws of an unfused rollout of T steps over envs of batch
+    shape S ((B,) solo, (P, B) for members)."""
+    noise: torch.Tensor   # (T, *S) standard normal action noise
+    spawn: torch.Tensor   # (T, *S, core.spawn_width) respawn uniforms
+
+
+def rollout_draws(seed, n_steps: int, shape: Sequence[int],
+                  env_params: EnvParams, dtype=torch.float32,
+                  device=None) -> RolloutDraws:
+    """Every draw of an unfused rollout of `n_steps` steps over envs of
+    batch `shape`, made on `device` at once from `seed` (an int, or a (1,)
+    int32 tensor there, as the fused rollout takes it): env e of the
+    flattened batch, step t and salt k hash to
+    `step_math.hash32(rng_base(seed, e), t, k)`.  A float32 uniform is a
+    hash's top 24 bits (the kernels' `_u01_hash`); a float64 one adds 29
+    bits of a second hash (salt + LOW_BITS_SALT).  The noise is the
+    kernels' Box-Muller of salts NOISE_SALTS; each step's respawns take
+    `core.spawn_width` uniforms from SPAWN_SALT on."""
+    dev = resolve_device(device)
+    n = math.prod(shape)
+    base = sm.rng_base(seed, torch.arange(n, device=dev))
+    steps = torch.arange(n_steps, device=dev)[:, None]
+
+    def uniform(salt):
+        top = sm.hash32(base, steps, salt) >> 8
+        if dtype == torch.float64:
+            low = sm.hash32(base, steps, salt + LOW_BITS_SALT) >> 3
+            return (top * (1 << 29) + low).to(torch.float64) * 2.0 ** -53
+        return top.to(torch.float32) * sm.f32(1.0 / (1 << 24))
+
+    u1, u2 = (uniform(k) for k in NOISE_SALTS)
+    noise = (torch.sqrt(-2.0 * torch.log(torch.clamp(1.0 - u1, min=1e-12)))
+             * torch.cos(sm.TWO_PI * u2))
+    spawn = torch.stack([uniform(SPAWN_SALT + j) for j in
+                         range(core.spawn_width(env_params))], dim=-1)
+    return RolloutDraws(noise=noise.view(n_steps, *shape),
+                        spawn=spawn.view(n_steps, *shape, -1))
+
+
+def _envs_view(es: EnvState, lead: int, shape: Sequence[int]) -> EnvState:
+    """`es` with its `lead` leading (batch) axes reshaped to `shape`."""
+    return EnvState(**{f.name: getattr(es, f.name).reshape(
+        tuple(shape) + getattr(es, f.name).shape[lead:])
+        for f in dataclasses.fields(EnvState)})
+
+
+def _envs_rows(es: EnvState, rows: slice) -> EnvState:
+    """The envs `rows` of a flat (N,)-batched `es`, as views."""
+    return EnvState(**{f.name: getattr(es, f.name)[rows]
+                       for f in dataclasses.fields(EnvState)})
+
+
+@torch.no_grad()
+def rollout_members(params: torch.Tensor, env_state: EnvState,
+                    obs: torch.Tensor, cfg: PPOConfig,
+                    env_params: EnvParams, draws: RolloutDraws
+                    ) -> Tuple[EnvState, torch.Tensor, RolloutBatch,
+                               torch.Tensor, Dict[str, torch.Tensor]]:
+    """cfg.n_steps autoreset steps of P member policies, member m's on its
+    own B envs (JAX `collect_rollout`'s scan body, vmapped over members by
+    the JAX population): each step the policy forward (`members_forward`),
+    the raw Gaussian sample from `draws.noise` and its log-prob, the action
+    clipped to [-1, 1], and `vector.step_autoreset_batch` over all P * B
+    envs, the respawns reset beforehand from `draws.spawn` for every step
+    at once.  Everything runs in the params' dtype.
+
+    params (P, N_PARAMS); env_state leaves and obs (P, B, ...); draws of
+    batch shape (P, B).  Returns (env_state', obs', batch with (T, P, B,
+    ...) leaves, last values (P, B), JAX's six episode metrics (P,))."""
+    P, B = obs.shape[:2]
+    T, PB, dtype = cfg.n_steps, P * B, params.dtype
+    noise = draws.noise.reshape(T, P, B).to(dtype)
+    fresh, fresh_obs = core.observe(core.spawn_from_uniforms(
+        draws.spawn.reshape(T * PB, -1), env_params, dtype), env_params)
+    es = _envs_view(env_state, 2, (PB,))
+    log_std = members_log_std(params)[:, None]                # (P, 1)
+    bufs: Dict[str, List[torch.Tensor]] = {}
+    for t in range(T):
+        mean, value = members_forward(params, obs)            # (P, B)
+        action = sample_action(mean, log_std, noise[t])
+        logp = gaussian_log_prob(action[..., None], mean[..., None],
+                                 log_std[..., None])
+        rows = slice(t * PB, (t + 1) * PB)
+        es, out = vector.step_autoreset_batch(
+            es, torch.clamp(action, -1.0, 1.0).reshape(PB), env_params,
+            fresh=(_envs_rows(fresh, rows), fresh_obs[rows]))
+        step = {"obs": obs, "actions": action, "log_probs": logp,
+                "values": value}
+        step.update({k: getattr(out, k).view(P, B) for k in (
+            "reward", "done", "episode_return", "episode_steps",
+            "outcome")})
+        for k, v in step.items():
+            bufs.setdefault(k, []).append(v)
+        obs = out.obs.view(P, B, -1)
+    b = {k: torch.stack(v) for k, v in bufs.items()}
+    batch = RolloutBatch(obs=b["obs"], actions=b["actions"][..., None],
+                         log_probs=b["log_probs"], values=b["values"],
+                         rewards=b["reward"], dones=b["done"])
+    last_values = members_forward(params, obs)[1]
+    episodes = b["done"].sum(dim=(0, 2)).to(dtype)
+    n_ep = torch.clamp(episodes, min=1.0)
+    outcome = b["outcome"]
+    metrics = {
+        "episodes": episodes,
+        "ep_return_mean": b["episode_return"].sum(dim=(0, 2)) / n_ep,
+        "ep_length_mean": b["episode_steps"].sum(dim=(0, 2)).to(dtype) / n_ep,
+        "goal_rate": (outcome == 1).sum(dim=(0, 2)).to(dtype) / n_ep,
+        "collision_rate": (outcome == 2).sum(dim=(0, 2)).to(dtype) / n_ep,
+        "timeout_rate": (outcome == 3).sum(dim=(0, 2)).to(dtype) / n_ep,
+    }
+    return _envs_view(es, 1, (P, B)), obs, batch, last_values, metrics
+
+
+def collect_rollout(state: TrainState, cfg: PPOConfig,
+                    env_params: EnvParams, draws: RolloutDraws
+                    ) -> Tuple[TrainState, RolloutBatch, torch.Tensor,
+                               Dict[str, torch.Tensor]]:
+    """The unfused rollout of one policy (JAX `collect_rollout`): the P = 1
+    call of `rollout_members`, draws of batch shape (B,).  Returns
+    (state', batch with (T, B, ...) leaves, last_value (B,), metrics)."""
+    B = state.obs.shape[0]
+    es, obs, batch, last_values, metrics = rollout_members(
+        state.params[None], _envs_view(state.env_state, 1, (1, B)),
+        state.obs[None], cfg, env_params,
+        RolloutDraws(noise=draws.noise[:, None], spawn=draws.spawn[:, None]))
+    batch = RolloutBatch(**{f.name: getattr(batch, f.name)[:, 0]
+                            for f in dataclasses.fields(RolloutBatch)})
+    new_state = state.replace(env_state=_envs_view(es, 2, (B,)), obs=obs[0],
+                              iteration=state.iteration + 1)
+    return (new_state, batch, last_values[0],
+            {k: v[0] for k, v in metrics.items()})
+
+
+# ------------------------------------------------------------------- loss
+
+def ppo_loss(params: torch.Tensor, data: torch.Tensor, cfg: PPOConfig
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The clipped-PPO loss of JAX `learner.ppo_loss`, as differentiable
+    tensor code, for P members at once: params (P, N_PARAMS), data (P, n,
+    13), each member's minibatch packed as `ppo_update_members` packs it
+    (obs 8, raw action, old log-prob, old value, advantage, return).
+    Returns (loss (P,), aux {policy_loss, value_loss, entropy, approx_kl,
+    clip_fraction}, each (P,)).  Advantages are normalised per member by
+    the population std (JAX's `std`, ddof 0); the log-ratio is clamped to
+    +-20 nats."""
+    obs, actions, old_logp = data[..., :8], data[..., 8], data[..., 9]
+    advantages, returns = data[..., 11], data[..., 12]
+    mean, value = members_forward(params, obs)                # (P, n)
+    log_std = members_log_std(params)[:, None]                # (P, 1)
+    logp = gaussian_log_prob(actions[..., None], mean[..., None],
+                             log_std[..., None])
+    ratio = torch.exp(torch.clamp(logp - old_logp, -20.0, 20.0))
+    if cfg.normalize_advantage:
+        advantages = ((advantages - advantages.mean(-1, keepdim=True))
+                      / (advantages.std(-1, correction=0, keepdim=True)
+                         + 1e-8))
+    unclipped = advantages * ratio
+    clipped = advantages * torch.clamp(ratio, 1 - cfg.clip_range,
+                                       1 + cfg.clip_range)
+    policy_loss = -torch.minimum(unclipped, clipped).mean(-1)
+    value_loss = ((returns - value) ** 2).mean(-1)
+    entropy = gaussian_entropy(log_std)                       # (P,)
+    loss = (policy_loss + cfg.ent_coef * (-entropy)
+            + cfg.vf_coef * value_loss)
+    aux = {
+        "policy_loss": policy_loss,
+        "value_loss": value_loss,
+        "entropy": entropy,
+        "approx_kl": ((ratio - 1) - torch.log(ratio)).mean(-1),
+        "clip_fraction": ((ratio - 1).abs() > cfg.clip_range
+                          ).to(torch.float32).mean(-1),     # JAX's float32
+    }
+    return loss, aux
+
+
+def ppo_loss_grads(params: torch.Tensor, data: torch.Tensor,
+                   cfg: PPOConfig
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Each member's gradient of `ppo_loss` by autograd (JAX's `jax.grad`
+    branch of `ppo_update`): params (P, N_PARAMS), data (P, n, 13) ->
+    (grads (P, N_PARAMS), aux (P,) with 'loss').  One backward of the sum
+    of the members' losses gives every member's own gradient, since
+    members share nothing."""
+    with torch.enable_grad():
+        p = params.detach().requires_grad_(True)
+        loss, aux = ppo_loss(p, data, cfg)
+        grads, = torch.autograd.grad(loss.sum(), p)
+    aux = {k: v.detach() for k, v in aux.items()}
+    aux["loss"] = loss.detach()
+    return grads, aux
+
+
 # ----------------------------------------------------------------- update
 
 def as_perms(perms, members: int, n_blocks: int) -> torch.Tensor:
@@ -336,7 +561,8 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
                        ) -> Tuple[torch.Tensor, AdamState,
                                   Dict[str, torch.Tensor]]:
     """n_epochs x n_minibatches of clipped-PPO Adam steps (SB3 PPO.train)
-    for P members at once, each on its own (N, 13) packed batch.
+    for P members at once, each on its own (N, 13) packed batch, in the
+    params' dtype.
 
     `params` and the Adam moments are (P, N_PARAMS); `data` (P, N, 13).
     Each epoch permutes every member's contiguous blocks of
@@ -344,16 +570,18 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
     (`as_perms`: (E, P, N / block) indices; `draw_perms` draws them from
     the members' generators).  `scalars`, the steps' (E * M, 3) Adam
     scalars (`Optimizer.scalars`) on the data's device, is by default made
-    from the Adam count.  Every minibatch step of all members is one
-    launch of the gradient kernel, with bf16 operands under
-    cfg.fused_update_bf16.  Metrics are (P,) means over the steps."""
+    from the Adam count.  Under cfg.fused_update every minibatch step of
+    all members is one launch of the gradient kernel, with bf16 operands
+    under cfg.fused_update_bf16; else its gradients come from autograd
+    (`ppo_loss_grads`).  Metrics are (P,) means over the steps."""
     P, N = data.shape[:2]
     block = cfg.shuffle_block
     n_blocks = N // block
     perms = as_perms(perms, P, n_blocks).to(data.device)
     if scalars is None:
         scalars = optimizer.scalars(
-            opt_state.count, cfg.n_epochs * cfg.n_minibatches).to(data.device)
+            opt_state.count, cfg.n_epochs * cfg.n_minibatches,
+            params.dtype).to(data.device)
     blocks = data.view(P, n_blocks, block, data.shape[-1])
     members = torch.arange(P, device=data.device)[:, None]
     aux_all: Dict[str, List[torch.Tensor]] = {}
@@ -361,11 +589,14 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
         mbs = blocks[members, perms[epoch]].view(
             P, cfg.n_minibatches, cfg.minibatch_size, data.shape[-1])
         for j in range(cfg.n_minibatches):
-            grads, aux = ppo_minibatch_grads_members(
-                params, mbs[:, j], clip_range=cfg.clip_range,
-                vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
-                normalize_advantage=cfg.normalize_advantage,
-                bf16=cfg.fused_update_bf16)
+            if cfg.fused_update:
+                grads, aux = ppo_minibatch_grads_members(
+                    params, mbs[:, j], clip_range=cfg.clip_range,
+                    vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
+                    normalize_advantage=cfg.normalize_advantage,
+                    bf16=cfg.fused_update_bf16)
+            else:
+                grads, aux = ppo_loss_grads(params, mbs[:, j], cfg)
             updates, opt_state = optimizer.update(
                 grads, opt_state, scalars[epoch * cfg.n_minibatches + j])
             params = params + updates
@@ -388,7 +619,7 @@ def ppo_update(params: torch.Tensor, opt_state: AdamState,
     N = cfg.batch_size
     fields = (batch.obs, batch.actions, batch.log_probs, batch.values,
               advantages, returns)
-    data = torch.cat([x.reshape(N, -1).to(torch.float32) for x in fields],
+    data = torch.cat([x.reshape(N, -1).to(params.dtype) for x in fields],
                      dim=1)
     one = AdamState(mu=opt_state.mu[None], nu=opt_state.nu[None],
                     count=opt_state.count)
@@ -400,16 +631,31 @@ def ppo_update(params: torch.Tensor, opt_state: AdamState,
 
 # ------------------------------------------------------------- train step
 
-def check_ported(cfg: PPOConfig) -> None:
-    """Refuse the PPOConfig options the port does not implement yet.  The
-    training steps (solo and population) call it first."""
-    unsupported = [f"{name}={getattr(cfg, name)}" for name, ported in (
-        ("fused_rollout", True), ("fused_update", True),
-        ("update_remat", False))
-        if getattr(cfg, name) != ported]
-    if unsupported:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(unsupported)}")
+def check_ported(cfg: PPOConfig, dtype=torch.float32) -> None:
+    """Refuse what the port does not run.  The training steps (solo and
+    population) and the driver call it first.  `update_remat` is an XLA
+    schedule of the same gradients, not ported; float64 runs only on the
+    unfused paths, since both kernels compute in float32 (where JAX would
+    cast a float64 state to float32 in its kernels)."""
+    if cfg.update_remat:
+        raise NotImplementedError("not ported: update_remat=True")
+    if dtype != torch.float32 and (cfg.fused_rollout or cfg.fused_update):
+        raise ValueError(
+            f"{dtype} training runs the unfused rollout and update only: "
+            f"the fused kernels compute in float32 (fused_rollout="
+            f"{cfg.fused_rollout}, fused_update={cfg.fused_update})")
+
+
+def _check_matmuls(cfg: PPOConfig, dev: torch.device) -> None:
+    """The unfused paths' float32 products are PyTorch's matmuls, which
+    JAX's XLA path computes in float32: refuse TF32 for them on the card,
+    rather than round them to 10 bits of mantissa."""
+    unfused = not (cfg.fused_rollout and cfg.fused_update)
+    if (unfused and dev.type == "cuda"
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            "the unfused rollout and update compute float32 products in "
+            "float32: set torch.backends.cuda.matmul.allow_tf32 = False")
 
 
 def iteration_inputs(cfg: PPOConfig, state, n_iters: int, device,
@@ -422,7 +668,7 @@ def iteration_inputs(cfg: PPOConfig, state, n_iters: int, device,
     permutation of every member from its own generator), and the Adam
     steps' scalars from the state's Adam count on.  Returns (seeds
     (n, 1) int32, perms (n, E, P, N / block) int64, scalars (n, E * M, 3)
-    float32), copied to `device` at once.  `seed` and `perms` (a
+    in the params' dtype), copied to `device` at once.  `seed` and `perms` (a
     sequence of per-epoch arrays, see `as_perms`) replace one
     iteration's draws: the parity tests pass the JAX step's."""
     gens = state.generators
@@ -436,7 +682,8 @@ def iteration_inputs(cfg: PPOConfig, state, n_iters: int, device,
                          if perms is not None
                          else draw_perms(cfg, gens, n_blocks))
     n_steps = cfg.n_epochs * cfg.n_minibatches
-    scalars = Optimizer(cfg).scalars(state.opt_state.count, n_iters * n_steps)
+    scalars = Optimizer(cfg).scalars(state.opt_state.count, n_iters * n_steps,
+                                     state.params.dtype)
     return (torch.tensor(seeds, dtype=torch.int32).view(n_iters, 1)
             .to(device), torch.stack(all_perms).to(device),
             scalars.view(n_iters, n_steps, 3).to(device))
@@ -447,16 +694,26 @@ def _no_mark(name: str) -> None:
 
 
 def _solo_iteration(cfg: PPOConfig, env_params: EnvParams,
-                    dev: torch.device) -> Callable:
-    """iteration(state, seed, perms, scalars, mark) -> (state, metrics):
-    one solo PPO iteration on its inputs (`iteration_inputs`' rows),
-    drawing nothing from the generator."""
+                    dev: torch.device, dtype=torch.float32) -> Callable:
+    """iteration(state, seed, perms, scalars, mark, draws=None) -> (state,
+    metrics): one solo PPO iteration on its inputs (`iteration_inputs`'
+    rows), drawing nothing from the generator.  The unfused rollout makes
+    its draws from the seed (`rollout_draws`) unless `draws` are given."""
     model = ActorCritic(device=dev)
     optimizer = Optimizer(cfg)
 
-    def iteration(state: TrainState, seed, perms, scalars, mark):
-        state, batch, last_value, env_metrics = collect_rollout_fused(
-            model, state, cfg, env_params, seed)
+    def iteration(state: TrainState, seed, perms, scalars, mark,
+                  draws: Optional[RolloutDraws] = None):
+        check_state(cfg, state, dtype, draws)
+        if cfg.fused_rollout:
+            state, batch, last_value, env_metrics = collect_rollout_fused(
+                model, state, cfg, env_params, seed)
+        else:
+            if draws is None:
+                draws = rollout_draws(seed, cfg.n_steps, (cfg.n_envs,),
+                                      env_params, dtype, dev)
+            state, batch, last_value, env_metrics = collect_rollout(
+                state, cfg, env_params, draws)
         mark("rollout")
         advantages, returns = compute_gae(
             batch.rewards, batch.values, batch.dones, last_value,
@@ -477,35 +734,52 @@ def _solo_iteration(cfg: PPOConfig, env_params: EnvParams,
     return iteration
 
 
+def check_state(cfg: PPOConfig, state, dtype, draws) -> None:
+    """Refuse a state of another dtype than the step was built for, and
+    draws given to the fused rollout, which takes only its seed."""
+    if state.params.dtype != dtype:
+        raise ValueError(f"a step built for {dtype} got a "
+                         f"{state.params.dtype} state")
+    if draws is not None and cfg.fused_rollout:
+        raise ValueError("the fused rollout takes its seed, not draws")
+
+
 def eager_step(iteration: Callable, cfg: PPOConfig, dev: torch.device,
                on_phase: Optional[Callable[[str], None]] = None) -> Callable:
-    """step(state, seed=None, perms=None) -> (state, metrics): `iteration`
-    on the state's next draws (`iteration_inputs`), run eagerly."""
+    """step(state, seed=None, perms=None, draws=None) -> (state, metrics):
+    `iteration` on the state's next draws (`iteration_inputs`; `draws`,
+    an unfused rollout's `RolloutDraws`, replace those made from the
+    seed), run eagerly."""
     mark = on_phase if on_phase is not None else _no_mark
 
-    def step(state, seed: Optional[int] = None, perms=None):
+    def step(state, seed: Optional[int] = None, perms=None,
+             draws: Optional[RolloutDraws] = None):
         seeds, all_perms, scalars = iteration_inputs(cfg, state, 1, dev,
                                                      seed, perms)
-        return iteration(state, seeds[0], all_perms[0], scalars[0], mark)
+        return iteration(state, seeds[0], all_perms[0], scalars[0], mark,
+                         draws)
 
     return step
 
 
 def make_train_step(cfg: PPOConfig, env_params: EnvParams,
                     device=None,
-                    on_phase: Optional[Callable[[str], None]] = None
-                    ) -> Callable:
-    """Returns train_step(state, seed=None, perms=None) -> (state, metrics):
-    one PPO iteration (fused rollout, GAE, epochs of fused-gradient Adam
-    steps), run eagerly.  Metrics are 0-dim tensors on the state's device.
-    `on_phase(name)`, when given, is called as each phase ends ("rollout",
-    "gae", "update"), so a caller can time the phases of this very step.
+                    on_phase: Optional[Callable[[str], None]] = None,
+                    dtype=torch.float32) -> Callable:
+    """Returns train_step(state, seed=None, perms=None, draws=None) ->
+    (state, metrics): one PPO iteration (rollout, GAE, epochs of Adam
+    steps, on the paths cfg.fused_rollout and cfg.fused_update choose) of
+    a `dtype` state, run eagerly.  Metrics are 0-dim tensors on the
+    state's device.  `on_phase(name)`, when given, is called as each phase
+    ends ("rollout", "gae", "update"), so a caller can time the phases of
+    this very step.
 
-    It refuses the PPOConfig options the port does not implement yet
-    (`check_ported`); `fused_update_packed` is the fused update here."""
+    It refuses what the port does not run (`check_ported`);
+    `fused_update_packed` is the fused update here."""
     dev = resolve_device(device)
-    check_ported(cfg)
-    return eager_step(_solo_iteration(cfg, env_params, dev), cfg, dev,
+    check_ported(cfg, dtype)
+    _check_matmuls(cfg, dev)
+    return eager_step(_solo_iteration(cfg, env_params, dev, dtype), cfg, dev,
                       on_phase)
 
 
@@ -664,7 +938,8 @@ class ReplayedLoop:
 
 
 def make_train_loop(cfg: PPOConfig, env_params: EnvParams,
-                    iters_per_call: int, device=None) -> Callable:
+                    iters_per_call: int, device=None,
+                    dtype=torch.float32) -> Callable:
     """Returns train_loop(state) -> (state, metrics): `iters_per_call` PPO
     iterations a call, metrics stacked on a leading (K,) axis, as K calls
     of `make_train_step`'s step would give them (the counterpart of JAX
@@ -672,11 +947,12 @@ def make_train_loop(cfg: PPOConfig, env_params: EnvParams,
     is those K eager steps; on the card, replays of one captured iteration
     (`ReplayedLoop`)."""
     dev = resolve_device(device)
-    check_ported(cfg)
+    check_ported(cfg, dtype)
+    _check_matmuls(cfg, dev)
     if dev.type != "cuda":
-        return stacked_loop(make_train_step(cfg, env_params, dev),
-                            iters_per_call)
-    return ReplayedLoop(_solo_iteration(cfg, env_params, dev), cfg,
+        return stacked_loop(make_train_step(cfg, env_params, dev,
+                                            dtype=dtype), iters_per_call)
+    return ReplayedLoop(_solo_iteration(cfg, env_params, dev, dtype), cfg,
                         iters_per_call)
 
 

@@ -1,7 +1,7 @@
 """Population training: P independent PPO runs side by side in one process.
 
-Counterpart of `acas2d_tpu/ppo/population.py` on its fused path
-(`fused_rollout=True`, `fused_update` / `fused_update_packed`).  ACAS-2D PPO
+Counterpart of `acas2d_tpu/ppo/population.py` on its four paths
+(`fused_rollout`, `fused_update` / `fused_update_packed`).  ACAS-2D PPO
 at the flagship shape is a seed lottery, so the shipped pipeline
 (`scripts/population_pipeline.sh`) trains 32 member policies at once and
 keeps the best by a risk-adjusted re-evaluation (`PopulationTracker`).
@@ -16,11 +16,15 @@ member axis out:
 
   * every rollout chunk of the whole population is ONE launch of the
     member-grid rollout kernel (`ops/policy_rollout.py:
-    fused_policy_rollout_members`);
+    fused_policy_rollout_members`); unfused, every step of the whole
+    population is one step of the batch-native env core over P * B envs,
+    each member's policy on its own (`learner.rollout_members`);
   * GAE runs once over the flattened (T, P * B) batch, which is exact
     because GAE is per env;
   * every minibatch step of the whole population is ONE launch of the
-    member-batched gradient kernel (`learner.ppo_update_members`).
+    member-batched gradient kernel (`learner.ppo_update_members`), or
+    unfused one autograd backward of the sum of the members' losses,
+    which gives each member its own gradient.
 
 The JAX package shards members over several chips (`population.py:269-273`);
 the port runs on one card.
@@ -53,7 +57,7 @@ from acas2d_tpu_torch.utils.params_io import (STACK_KEY, _flatten,
 
 @dataclasses.dataclass
 class PopulationState:
-    params: torch.Tensor                # (P, N_PARAMS) flat float32
+    params: torch.Tensor                # (P, N_PARAMS) flat
     opt_state: learner.AdamState        # (P, N_PARAMS) moments
     env_state: EnvState                 # (P, B)-batched leaves
     obs: torch.Tensor                   # (P, B, O)
@@ -65,11 +69,12 @@ class PopulationState:
 
 
 def init_population(cfg: PPOConfig, env_params: EnvParams, pop: int,
-                    device=None) -> PopulationState:
+                    device=None, dtype=torch.float32) -> PopulationState:
     """Member i's params, Adam state, env batch and generator equal a solo
-    `learner.init_train_state(seed=cfg.seed + i)`."""
+    `learner.init_train_state(seed=cfg.seed + i, dtype=dtype)`."""
     dev = resolve_device(device)
-    solo = [learner.init_train_state(cfg, env_params, dev, seed=cfg.seed + i)
+    solo = [learner.init_train_state(cfg, env_params, dev, seed=cfg.seed + i,
+                                     dtype=dtype)
             for i in range(pop)]
     env_state = EnvState(**{
         f.name: torch.stack([getattr(s.env_state, f.name) for s in solo])
@@ -142,17 +147,31 @@ def collect_rollout_fused_members(state: PopulationState, cfg: PPOConfig,
     return new_state, batch, last_values, metrics
 
 
-def _population_iteration(cfg: PPOConfig, env_params: EnvParams
-                          ) -> Callable:
-    """iteration(state, seed, perms, scalars, mark) -> (state, metrics):
-    one PPO iteration of every member on its inputs
+def _population_iteration(cfg: PPOConfig, env_params: EnvParams,
+                          dtype=torch.float32) -> Callable:
+    """iteration(state, seed, perms, scalars, mark, draws=None) -> (state,
+    metrics): one PPO iteration of every member on its inputs
     (`learner.iteration_inputs`' rows), drawing nothing from the
-    generators."""
+    generators; the unfused rollout's draws come from the seed, as the
+    fused rollout's do, unless `draws` are given."""
     optimizer = learner.Optimizer(cfg)
 
-    def iteration(state: PopulationState, seed, perms, scalars, mark):
-        state, batch, last_values, env_metrics = (
-            collect_rollout_fused_members(state, cfg, env_params, seed))
+    def iteration(state: PopulationState, seed, perms, scalars, mark,
+                  draws: Optional[learner.RolloutDraws] = None):
+        learner.check_state(cfg, state, dtype, draws)
+        if cfg.fused_rollout:
+            state, batch, last_values, env_metrics = (
+                collect_rollout_fused_members(state, cfg, env_params, seed))
+        else:
+            if draws is None:
+                draws = learner.rollout_draws(
+                    seed, cfg.n_steps, tuple(state.obs.shape[:2]),
+                    env_params, dtype, state.obs.device)
+            env_state, obs, batch, last_values, env_metrics = (
+                learner.rollout_members(state.params, state.env_state,
+                                        state.obs, cfg, env_params, draws))
+            state = state.replace(env_state=env_state, obs=obs,
+                                  iteration=state.iteration + 1)
         mark("rollout")
         T, P, B = batch.values.shape
         advantages, returns = compute_gae(
@@ -164,7 +183,7 @@ def _population_iteration(cfg: PPOConfig, env_params: EnvParams
         mark("gae")
         fields = (batch.obs, batch.actions, batch.log_probs, batch.values,
                   advantages, returns)
-        data = torch.cat([x.reshape(T, P, B, -1).to(torch.float32)
+        data = torch.cat([x.reshape(T, P, B, -1).to(dtype)
                           for x in fields], dim=-1)
         data = data.transpose(0, 1).reshape(P, T * B, data.shape[-1])
         params, opt_state, opt_metrics = learner.ppo_update_members(
@@ -183,24 +202,28 @@ def _population_iteration(cfg: PPOConfig, env_params: EnvParams
 
 
 def make_population_step(cfg: PPOConfig, env_params: EnvParams, device=None,
-                         on_phase: Optional[Callable[[str], None]] = None
-                         ) -> Callable:
-    """Returns step(state, seed=None, perms=None) -> (state, metrics): one
-    PPO iteration of every member (member-grid rollout, GAE, epochs of
-    member-batched gradient steps with Adam), run eagerly.  Metrics are
-    (P,) tensors.  `seed` replaces the rollout seed drawn from member 0's
-    generator and `perms[e]` ((P, N / block) indices) replaces epoch e's
-    permutations drawn from each member's generator: the parity tests pass
-    the draws the JAX step derives from its keys.  `on_phase(name)` is
-    called as each phase ends ("rollout", "gae", "update")."""
+                         on_phase: Optional[Callable[[str], None]] = None,
+                         dtype=torch.float32) -> Callable:
+    """Returns step(state, seed=None, perms=None, draws=None) -> (state,
+    metrics): one PPO iteration of every member (rollout, GAE, epochs of
+    member-batched gradient steps with Adam, on the paths cfg chooses) of
+    a `dtype` state, run eagerly.  Metrics are (P,) tensors.  `seed`
+    replaces the rollout seed drawn from member 0's generator, `perms[e]`
+    ((P, N / block) indices) replaces epoch e's permutations drawn from
+    each member's generator, and `draws` (of batch shape (P, B)) the
+    unfused rollout's draws: the parity tests pass the draws the JAX step
+    derives from its keys.  `on_phase(name)` is called as each phase ends
+    ("rollout", "gae", "update")."""
     dev = resolve_device(device)
-    learner.check_ported(cfg)
-    return learner.eager_step(_population_iteration(cfg, env_params), cfg,
-                              dev, on_phase)
+    learner.check_ported(cfg, dtype)
+    learner._check_matmuls(cfg, dev)
+    return learner.eager_step(_population_iteration(cfg, env_params, dtype),
+                              cfg, dev, on_phase)
 
 
 def make_population_loop(cfg: PPOConfig, env_params: EnvParams,
-                         iters_per_call: int, device=None) -> Callable:
+                         iters_per_call: int, device=None,
+                         dtype=torch.float32) -> Callable:
     """Returns loop(state) -> (state, metrics): `iters_per_call`
     iterations of every member a call, metrics (K, P) (JAX
     `population.make_population_loop`).  On the CPU, K calls of
@@ -208,12 +231,15 @@ def make_population_loop(cfg: PPOConfig, env_params: EnvParams,
     iteration (`learner.ReplayedLoop`): the seed still comes from member
     0's generator and each member's permutations from its own."""
     dev = resolve_device(device)
-    learner.check_ported(cfg)
+    learner.check_ported(cfg, dtype)
+    learner._check_matmuls(cfg, dev)
     if dev.type != "cuda":
         return learner.stacked_loop(
-            make_population_step(cfg, env_params, dev), iters_per_call)
-    return learner.ReplayedLoop(_population_iteration(cfg, env_params), cfg,
-                                iters_per_call)
+            make_population_step(cfg, env_params, dev, dtype=dtype),
+            iters_per_call)
+    return learner.ReplayedLoop(
+        _population_iteration(cfg, env_params, dtype), cfg,
+        iters_per_call)
 
 
 def make_population_eval(cfg: PPOConfig, env_params: EnvParams,

@@ -1,15 +1,22 @@
-"""PPO training driver of the PyTorch port (fused path).
+"""PPO training driver of the PyTorch port.
 
-The subset of the JAX driver (`train.py`) that the port covers: solo PPO,
+The JAX driver (`train.py`) less its XLA- and TPU-only options: solo PPO,
 and population training (`--population P`, `ppo/population.py`), at the
-`reference` or `tpu` preset, where every rollout chunk runs the fused
-policy-in-kernel rollout and every minibatch gradient runs the fused
-PPO-gradient kernel (on a CUDA device; the plain PyTorch versions of the
-same arithmetic on the CPU).  It prints one JSON line of metrics per
-iteration on stdout, and logs, checkpoints and a summary into its run
-directory.
+`reference` or `tpu` preset.  As in JAX, the rollout steps the env core
+step by step and the update differentiates the PPO loss with autograd,
+unless `--fused-rollout` (every rollout chunk one launch of the fused
+policy-in-kernel rollout) and `--fused-update` (every minibatch gradient
+one launch of the fused PPO-gradient kernel) ask for the kernels (on a
+CUDA device; their plain PyTorch versions on the CPU); any of the four
+combinations runs.  `--dtype float64` trains the unfused paths in float64
+(params, Adam state, env state, buffers, GAE and evals), where JAX's
+driver does so only under JAX_ENABLE_X64.  It prints one JSON line of
+metrics per iteration on stdout, and logs, checkpoints and a summary into
+its run directory.
 
-    python -m acas2d_tpu_torch.train --preset tpu --total-steps 2621440
+    python -m acas2d_tpu_torch.train --preset tpu --fused-rollout \\
+        --fused-update --total-steps 2621440
+    python -m acas2d_tpu_torch.train --preset reference --exact-eval
     python -m acas2d_tpu_torch.train --preset tpu --device cpu --n-envs 64 \\
         --n-steps 32 --minibatch-size 512 --total-steps 4096
 
@@ -73,16 +80,16 @@ them; `log`, `checkpoint`, `best_ckpt`, `final_reval` as JAX names them,
 and `eval`, the port's synchronous eval, where JAX splits `eval_enqueue`
 and `eval_resolve`).
 
-The fused paths are on by default (`--no-fused-rollout` and
-`--no-fused-update` ask for the unfused ones, which are not ported yet).
-`--fused-update-packed` is the fused update in the port (its parameters
-are always one flat vector in the kernel's layout), and
-`--fused-update-bf16` rounds the gradient kernel's product operands to
-bf16.  Options the port does not implement yet are refused with an error,
-so a JAX command line never silently means something else: the unfused
-paths map onto their `PPOConfig` fields, which `learner.check_ported`
-refuses, and flags with no port at all (`--dtype`, `--platform`,
-`--compile-cache`) are unknown to the parser.
+The defaults are JAX's, so that a JAX command line means the same run:
+the fused paths are off unless asked for (`--no-fused-rollout` and
+`--no-fused-update` spell the default out).  `--fused-update-packed` is
+the fused update in the port (its parameters are always one flat vector
+in the kernel's layout), and `--fused-update-bf16` rounds the gradient
+kernel's product operands to bf16; both imply `--fused-update`, as in JAX.
+What the port does not run is refused with an error (`learner.
+check_ported`: float64 with a fused kernel, which computes in float32),
+and flags with no port at all (`--platform`, `--compile-cache`) are
+unknown to the parser.
 """
 
 from __future__ import annotations
@@ -127,15 +134,15 @@ def parse_args(argv=None):
     p.add_argument("--fused-chunk", type=int, default=None,
                    help="steps per fused rollout launch (default 16)")
     p.add_argument("--fused-rollout", action=argparse.BooleanOptionalAction,
-                   default=True,
+                   default=False,
                    help="collect rollouts with the fused policy-in-kernel "
-                        "rollout (default on; the unfused path is not "
-                        "ported yet)")
+                        "rollout, --fused-chunk steps a launch (default: "
+                        "the step-by-step rollout, as JAX)")
     p.add_argument("--fused-update", action=argparse.BooleanOptionalAction,
-                   default=True,
+                   default=False,
                    help="compute each minibatch gradient with the fused "
-                        "PPO-gradient kernel (default on; the autograd "
-                        "update is not ported yet)")
+                        "PPO-gradient kernel (default: autograd of the PPO "
+                        "loss, as JAX)")
     p.add_argument("--fused-update-packed", action="store_true",
                    help="the packed-parameter update of the JAX package; in "
                         "the port the same update as the fused one (its "
@@ -144,7 +151,12 @@ def parse_args(argv=None):
     p.add_argument("--fused-update-bf16", action="store_true",
                    help="round the operands of the update kernel's matrix "
                         "products to bf16 (float32 sums); solo and "
-                        "population runs")
+                        "population runs. Implies --fused-update")
+    p.add_argument("--dtype", choices=["float32", "float64"],
+                   default="float32",
+                   help="the run's float type: params, Adam state, env "
+                        "state, buffers, GAE and evals (float64 runs the "
+                        "unfused rollout and update only)")
     p.add_argument("--population", type=int, default=0, metavar="P",
                    help="train P member policies side by side (member i as "
                         "a solo run with --seed seed+i), one kernel launch "
@@ -225,10 +237,15 @@ def build_config(args) -> PPOConfig:
     overrides.update(seed=args.seed, anneal_lr=args.anneal_lr,
                      fused_rollout=args.fused_rollout,
                      fused_update=(args.fused_update
-                                   or args.fused_update_packed),
+                                   or args.fused_update_packed
+                                   or args.fused_update_bf16),
                      fused_update_packed=args.fused_update_packed,
                      fused_update_bf16=args.fused_update_bf16)
     return dataclasses.replace(cfg, **overrides)
+
+
+def dtype_of(args) -> torch.dtype:
+    return torch.float64 if args.dtype == "float64" else torch.float32
 
 
 def resolve_iters_per_call(requested: Optional[int], preset: str,
@@ -355,6 +372,7 @@ class _Run:
         self.t_main = time.perf_counter()
         self.args, self.cfg, self.run_dir = args, cfg, run_dir
         self.device = resolve_device(args.device)
+        self.dtype = dtype_of(args)
         self.iters_per_call = resolve_iters_per_call(
             args.iters_per_call, args.preset, self.device, cfg)
         os.makedirs(run_dir, exist_ok=True)
@@ -500,10 +518,11 @@ class _Run:
             "argv": self.args.argv,
             "backend": "torch",
             "device": str(self.device),
-            "config": {k: getattr(cfg, k) for k in (
+            "config": {**{k: getattr(cfg, k) for k in (
                 "n_envs", "n_steps", "total_timesteps", "minibatch_size",
                 "n_epochs", "learning_rate", "anneal_lr", "seed",
                 "fused_rollout", "fused_update", "eval_every_steps")},
+                "dtype": self.args.dtype},
             "iters_per_call": self.iters_per_call,
             "population": self.args.population or None,
             "global_step": self.gstep(state),
@@ -540,24 +559,25 @@ def run(args) -> List[Dict[str, float]]:
     if args.population:
         return run_population(args)
     cfg = build_config(args)
-    learner.check_ported(cfg)
+    learner.check_ported(cfg, dtype_of(args))
     env_params = DEFAULT_PARAMS
     r = _Run(args, cfg, os.path.join(args.out_dir, run_name_of(args, cfg)))
-    device, K = r.device, r.iters_per_call
-    call = (learner.make_train_loop(cfg, env_params, K, device) if K > 1
-            else one_iteration_a_call(
-                learner.make_train_step(cfg, env_params, device)))
-    state = learner.init_train_state(cfg, env_params, device)
+    device, K, dtype = r.device, r.iters_per_call, r.dtype
+    call = (learner.make_train_loop(cfg, env_params, K, device, dtype)
+            if K > 1 else one_iteration_a_call(
+                learner.make_train_step(cfg, env_params, device,
+                                        dtype=dtype)))
+    state = learner.init_train_state(cfg, env_params, device, dtype=dtype)
     if args.init_params_npz:
-        state = state.replace(
-            params=_init_params(args.init_params_npz, 0).to(device))
+        state = state.replace(params=_init_params(
+            args.init_params_npz, 0).to(device, dtype))
     state = r.resume(state)
     if args.exact_eval:
         eval_fn = learner.make_exact_eval_fn(
-            cfg, env_params, device=device,
+            cfg, env_params, dtype, device=device,
             skip_episodes=r.evals_done * cfg.eval_episodes)
     else:
-        eval_fn = learner.make_eval_fn(cfg, env_params, device=device)
+        eval_fn = learner.make_eval_fn(cfg, env_params, dtype, device=device)
 
     def make_rows(metrics):
         keys = list(metrics)
@@ -589,22 +609,25 @@ def run_population(args) -> List[Dict]:
                          "the selected member afterwards with "
                          "acas2d_tpu_torch.eval --exact")
     cfg = build_config(args)
-    learner.check_ported(cfg)
+    learner.check_ported(cfg, dtype_of(args))
     env_params = DEFAULT_PARAMS
     pop = args.population
     run_name = run_name_of(args, cfg)
     run_dir = os.path.join(args.out_dir, run_name)
     r = _Run(args, cfg, run_dir)
-    device, K = r.device, r.iters_per_call
-    call = (population.make_population_loop(cfg, env_params, K, device)
+    device, K, dtype = r.device, r.iters_per_call, r.dtype
+    call = (population.make_population_loop(cfg, env_params, K, device,
+                                            dtype)
             if K > 1 else one_iteration_a_call(
-                population.make_population_step(cfg, env_params, device)))
-    state = population.init_population(cfg, env_params, pop, device)
+                population.make_population_step(cfg, env_params, device,
+                                                dtype=dtype)))
+    state = population.init_population(cfg, env_params, pop, device, dtype)
     if args.init_params_npz:
-        state = state.replace(
-            params=_init_params(args.init_params_npz, pop).to(device))
+        state = state.replace(params=_init_params(
+            args.init_params_npz, pop).to(device, dtype))
     state = r.resume(state)
-    eval_fn = population.make_population_eval(cfg, env_params, device=device)
+    eval_fn = population.make_population_eval(cfg, env_params, dtype,
+                                              device=device)
     tracker = population.PopulationTracker(run_dir, pop, cfg.seed)
 
     def make_rows(metrics):
@@ -645,11 +668,11 @@ def run_population(args) -> List[Dict]:
         # one large fresh eval of every archived snapshot, pop x k at once
         reval_fn = population.make_population_eval(
             dataclasses.replace(cfg, eval_episodes=args.reval_episodes),
-            env_params, device=device)
+            env_params, dtype, device=device)
         flat, _ = tracker.snapshots_flat()
         t0 = time.perf_counter()
         with r.timers("final_reval"):
-            rm = reval_fn(torch.as_tensor(flat, device=device),
+            rm = reval_fn(torch.as_tensor(flat, device=device, dtype=dtype),
                           torch.Generator().manual_seed(cfg.seed + 99))
             reval_vals = rm["eval_return_mean"].cpu().numpy()
             reval_stds = rm["eval_return_std"].cpu().numpy()
@@ -714,13 +737,14 @@ def polish_argv(args, run_dir: str, run_name: str) -> List[str]:
                       ("--fused-chunk", args.fused_chunk),
                       ("--eval-episodes", args.eval_episodes),
                       ("--eval-every", args.eval_every),
+                      ("--dtype", args.dtype),
                       ("--iters-per-call", args.iters_per_call),
                       ("--device", args.device)):
         if val is not None:
             argv += [flag, str(val)]
     for flag, on in (("--anneal-lr", args.anneal_lr),
-                     ("--no-fused-rollout", not args.fused_rollout),
-                     ("--no-fused-update", not args.fused_update),
+                     ("--fused-rollout", args.fused_rollout),
+                     ("--fused-update", args.fused_update),
                      ("--fused-update-packed", args.fused_update_packed),
                      ("--fused-update-bf16", args.fused_update_bf16)):
         if on:

@@ -1,7 +1,8 @@
 """A/B of the training driver's iteration time between source trees.
 
     python -m acas2d_tpu_torch.train_ab --source parent=_proof/parent \\
-        [--rounds 3] -- --preset tpu --total-steps 2621440
+        [--rounds 3] -- --preset tpu --fused-rollout --fused-update \\
+        --total-steps 2621440
 
 runs `python -m acas2d_tpu_torch.train <args>` from this checkout ("tree")
 and from each other tree (another checkout's root, e.g. a parent unpacked

@@ -24,7 +24,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      (N = 65,536 rows) and member-batched (P = 32 x N = 32,768), with the
      `tpu` preset's loss settings and again with ent_coef 0.01; then two
      launches on the same operands, which must agree bit for bit;
-  4. the solo main path: `acas2d_tpu_torch.train` at the full `tpu` preset
+  4. the solo main path: `acas2d_tpu_torch.train` on the fused paths
+     (`--fused-rollout --fused-update`, SOLO_ARGV) at the full `tpu` preset
      shape (2048 x 128, minibatch 65,536, 10 epochs) for 3 iterations, one
      eager iteration a call (--iters-per-call 1), with the launch counters
      read around it (8 rollout and 40 gradient launches per iteration) and
@@ -61,7 +62,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      (N = 65,536) and member-batched (P = 32 x N = 32,768), its deviation
      from the f32 kernel, and the precision probe, whose answer must agree
      with that deviation; then bf16 training, one iteration a call, solo
-     (`train --preset tpu --fused-update-bf16`, 3 iterations) and one
+     (SOLO_ARGV with `--fused-update-bf16`, 3 iterations) and one
      population iteration, with
      the launch counters read around each, and one more bf16 population
      iteration cut into rollout / GAE / update;
@@ -79,7 +80,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      solo preset's (10 episodes) through the eager greedy loop and through
      its 64-step chunks replayed as CUDA graphs (`learner.GreedyEval`):
      returns, lengths and outcomes bit-identical, both timed;
- 12. a whole solo run, `train --preset tpu` at its default budget (32
+ 12. a whole solo run, `train` with SOLO_ARGV at its default budget (32
      iterations, at the default 4 a call: replays of a captured iteration;
      evals of 10 episodes every 4, a checkpoint every call), with the
      launch counters read around it, its kept checkpoints, best/ and
@@ -108,7 +109,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      eager against replayed ms an iteration, in turns; the peak memory of
      each; and the card's busy share (the union of the kernels' intervals
      over the window) of a `train --profile` trace of calls 2-4, solo and
-     at P = 32.
+     at P = 32;
+ 16. the paths `train.py` runs by default (JAX's) and the mixed ones: the
+     solo `tpu` preset on the step-by-step rollout with the autograd
+     update, on the fused rollout with the autograd update, and on the
+     step-by-step rollout with the fused update, 3 iterations each
+     through `train.run`, one a call, the launch counters read around
+     each (0, 8 rollout and 40 gradient launches an iteration); phase
+     15's check of each of the three (2 calls of K = 4 replays against 8
+     eager steps, bit for bit, eager and replayed ms in turns); the
+     step-by-step rollout with the bf16 update for 3 iterations; the
+     pipeline's shape (P = 32) on the three pairs, 2 iterations each,
+     with their launch counters; one eager
+     iteration of the reference configuration of record (1 env x 2048
+     steps, minibatch 64), cut into its phases; and one unfused `tpu`
+     iteration in float64 on the card against the CPU.
 Every training run writes its run directory into a temporary directory.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -163,6 +178,9 @@ POLISH_POP = 16
 # eval_every / batch at most 16: 4 solo, 8 at the pipeline's shape
 SOLO_K = min(16, tpu_default().eval_every_steps // (SOLO_B * 128))
 POP_K = min(16, tpu_default().eval_every_steps // (POP_B * 128))
+# the solo `tpu` preset on the fused paths, which train.py runs only when
+# asked (its defaults are JAX's: the step-by-step rollout and autograd)
+SOLO_ARGV = ["--preset", "tpu", "--fused-rollout", "--fused-update"]
 POP_ARGV = ["--preset", "tpu", "--anneal-lr", "--population", str(POP),
             "--fused-rollout", "--fused-update-packed",
             "--n-envs", str(POP_B), "--minibatch-size", str(POP_N),
@@ -542,7 +560,7 @@ def check_finite(rows):
 def phase_main_path():
     from acas2d_tpu_torch import train
     with tempfile.TemporaryDirectory() as out:
-        argv = ["--preset", "tpu", "--total-steps", str(ITERS * SOLO_B * 128),
+        argv = SOLO_ARGV + ["--total-steps", str(ITERS * SOLO_B * 128),
                 "--iters-per-call", "1", "--out-dir", out]
         reset_counts()
         rows = train.run(train.parse_args(argv))
@@ -581,7 +599,7 @@ def breakdown(make_step, state):
 def phase_breakdown():
     from acas2d_tpu_torch import train
     from acas2d_tpu_torch.ppo import learner
-    cfg = train.build_config(train.parse_args(["--preset", "tpu"]))
+    cfg = train.build_config(train.parse_args(SOLO_ARGV))
     ms = breakdown(
         lambda mark: learner.make_train_step(cfg, DEFAULT_PARAMS, "cuda",
                                              on_phase=mark),
@@ -708,7 +726,7 @@ def phase_greedy_graphs():
     cfg = train.build_config(train.parse_args(POP_ARGV))
     members = population.init_population(cfg, DEFAULT_PARAMS, POP,
                                          "cuda").params
-    solo_cfg = train.build_config(train.parse_args(["--preset", "tpu"]))
+    solo_cfg = train.build_config(train.parse_args(SOLO_ARGV))
     cases = (("population", members, True, POP * cfg.eval_episodes),
              ("solo", members[0], False, solo_cfg.eval_episodes))
     for name, params, is_members, n in cases:
@@ -739,7 +757,7 @@ WHOLE_ITERS = 32          # the tpu preset's budget, 8,388,608 env-steps
 
 
 def phase_solo_run():
-    """`train --preset tpu` at its default budget (32 iterations of 2048 x
+    """`train` with SOLO_ARGV at its default budget (32 iterations of 2048 x
     128, SOLO_K a call: replays of a captured iteration; evals of 10
     episodes every 4 iterations), a checkpoint every call, with the launch
     counters read around it; then its best checkpoint through `eval --run
@@ -748,7 +766,7 @@ def phase_solo_run():
     from acas2d_tpu_torch import train
     batch = SOLO_B * 128
     with tempfile.TemporaryDirectory() as out:
-        argv = ["--preset", "tpu", "--checkpoint-every", str(batch),
+        argv = SOLO_ARGV + ["--checkpoint-every", str(batch),
                 "--out-dir", out, "--run-name", "solo"]
         reset_counts()
         rows, wall_ms = synced_ms(lambda: train.run(train.parse_args(argv)))
@@ -819,7 +837,7 @@ def phase_resume():
     be bit-identical."""
     from acas2d_tpu_torch import train
     from acas2d_tpu_torch.ppo import learner
-    cases = (("solo", ["--preset", "tpu", "--iters-per-call", "3"],
+    cases = (("solo", SOLO_ARGV + ["--iters-per-call", "3"],
               SOLO_B * 128, 6, 3),
              ("population", POP_ARGV + ["--reval-episodes", "0",
                                         "--polish-steps", "0"],
@@ -978,37 +996,42 @@ def leaves_differ(a, b):
 
 
 def replay_case(name, argv, pop):
-    """(K, init(), eager step, loop of K a call) of one of phase 15's
-    configurations, K `train.py`'s default on the card."""
+    """(config, K, init(), eager step, loop of K a call) of one of phase
+    15's or 16's configurations, K `train.py`'s default on the card."""
     from acas2d_tpu_torch import train
     from acas2d_tpu_torch.ppo import learner, population
     cfg = train.build_config(train.parse_args(argv))
     K = train.resolve_iters_per_call(None, "tpu", torch.device("cuda"), cfg)
     if pop:
-        return (K, lambda: population.init_population(cfg, DEFAULT_PARAMS,
-                                                      pop, "cuda"),
+        return (cfg, K, lambda: population.init_population(
+                    cfg, DEFAULT_PARAMS, pop, "cuda"),
                 population.make_population_step(cfg, DEFAULT_PARAMS, "cuda"),
                 population.make_population_loop(cfg, DEFAULT_PARAMS, K,
                                                 "cuda"))
-    return (K, lambda: learner.init_train_state(cfg, DEFAULT_PARAMS, "cuda"),
+    return (cfg, K,
+            lambda: learner.init_train_state(cfg, DEFAULT_PARAMS, "cuda"),
             learner.make_train_step(cfg, DEFAULT_PARAMS, "cuda"),
             learner.make_train_loop(cfg, DEFAULT_PARAMS, K, "cuda"))
 
 
-def phase_replayed_loop():
+REPLAY_CASES = (("solo", SOLO_ARGV, 0),
+                ("members", POP_ARGV, POP),
+                ("solo bf16", SOLO_ARGV + ["--fused-update-bf16"], 0))
+
+
+def phase_replayed_loop(cases=REPLAY_CASES):
     """K iterations a call, replays of a captured iteration, against K
     eager steps from the same state and generators: two calls against
     2K steps, bit for bit (the tensors an iteration hands the next, the
     Adam count, every metric, the generators), the launch counters read
-    around each call; each path's peak memory; then the two in turns
+    around each call (8 rollout launches an iteration on the fused
+    rollout and 40 gradient launches on the fused update, none on the
+    unfused paths); each path's peak memory; then the two in turns
     (eager, replayed, replayed, eager, twice), each timed from a synced
     start to its synced end, in ms an iteration."""
-    cases = (("solo", ["--preset", "tpu"], 0),
-             ("members", POP_ARGV, POP),
-             ("solo bf16", ["--preset", "tpu", "--fused-update-bf16"], 0))
     out = {}
     for name, argv, pop in cases:
-        K, init, step, loop = replay_case(name, argv, pop)
+        cfg, K, init, step, loop = replay_case(name, argv, pop)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1024,8 +1047,9 @@ def phase_replayed_loop():
             reset_counts()
             b, m = loop(b)
             launches = read_counts()
-            check(launches == expected(policy_rollout=8 * K,
-                                       ppo_grads=40 * K),
+            check(launches == expected(
+                policy_rollout=8 * K * cfg.fused_rollout,
+                ppo_grads=40 * K * cfg.fused_update),
                   f"{name}: a call of {K} launched {launches}")
             calls.append(m)
         replay_peak = torch.cuda.max_memory_allocated()
@@ -1072,7 +1096,7 @@ def phase_trace():
     holds only those calls (the one eval fires after the first)."""
     from acas2d_tpu_torch import train
     from acas2d_tpu_torch.utils import profiling
-    cases = (("solo", ["--preset", "tpu"], SOLO_K, SOLO_B * 128),
+    cases = (("solo", SOLO_ARGV, SOLO_K, SOLO_B * 128),
              ("members", POP_ARGV + ["--reval-episodes", "0",
                                      "--polish-steps", "0"],
               POP_K, POP_B * 128))
@@ -1103,6 +1127,145 @@ def phase_trace():
                   f"in {len(by_name) - 8} other kernels")
             out[name] = (share, kernels)
     return out
+
+
+# ----------------------------------------------------------------- phase 16
+
+# the solo `tpu` preset on the three other (rollout, update) pairs
+UNFUSED_CASES = (("unfused", ["--preset", "tpu"], 0),
+                 ("fused rollout + autograd", ["--preset", "tpu",
+                                               "--fused-rollout"], 0),
+                 ("unfused rollout + fused update", ["--preset", "tpu",
+                                                     "--fused-update"], 0))
+#  float64 on the card against the CPU, one unfused `tpu` iteration on the
+#  same state and draws: the draws' bits are the same on both (integer
+#  hashes), the float64 arithmetic sums in other orders and the card's libm
+#  differs by an ulp, so the rollouts agree to ~1e-13 unless an env crosses
+#  a threshold (an episode end) on one device only, which moves the
+#  gradient by ~1/262,144 of one sample's: params within 1e-7 (Adam steps
+#  of ~3e-4), metrics within rtol 1e-5.
+F64_PARAM_ATOL, F64_METRIC_RTOL = 1e-7, 1e-5
+
+
+def phase_unfused_main_paths():
+    """The three pairs, and the step-by-step rollout with the bf16 update,
+    through `train.run` at the full `tpu` preset, 3 iterations, one eager
+    iteration a call, the launch counters read around each: 8 rollout
+    launches an iteration on the fused rollout, 40 gradient launches on
+    the fused update, none on the unfused paths."""
+    from acas2d_tpu_torch import train
+    out = {}
+    for name, argv, _ in UNFUSED_CASES + (
+            ("unfused rollout + bf16 update",
+             ["--preset", "tpu", "--fused-update-bf16"], 0),):
+        cfg = train.build_config(train.parse_args(argv))
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts()
+            rows = train.run(train.parse_args(argv + [
+                "--total-steps", str(ITERS * SOLO_B * 128),
+                "--iters-per-call", "1", "--out-dir", tmp]))
+            launches = read_counts()
+        check(launches == expected(
+            policy_rollout=8 * ITERS * cfg.fused_rollout,
+            ppo_grads=40 * ITERS * cfg.fused_update),
+            f"{name}: {launches}")
+        check_finite(rows)
+        print(f"[unfused] {name}: launches over {ITERS} iterations "
+              f"{launches}; iteration seconds "
+              f"{[round(r['seconds'], 4) for r in rows]}; ep_return_mean "
+              f"{[round(r['ep_return_mean'], 3) for r in rows]}")
+        out[name] = launches
+    return out
+
+
+def phase_unfused_population():
+    """The pipeline's shape (P = 32 x 1024 envs, minibatch 32,768) on the
+    three pairs: 2 iterations each through `train.run`, one a call, an
+    eval of 32 x 32 episodes after the first, the launch counters read
+    around each (as in phase_unfused_main_paths)."""
+    from acas2d_tpu_torch import train
+    for name, flags, _ in UNFUSED_CASES:
+        argv = flags + ["--anneal-lr", "--population", str(POP),
+                        "--n-envs", str(POP_B), "--minibatch-size",
+                        str(POP_N), "--total-steps", str(2 * POP_B * 128),
+                        "--eval-episodes", "32", "--reval-episodes", "0",
+                        "--iters-per-call", "1"]
+        cfg = train.build_config(train.parse_args(argv))
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts()
+            rows = train.run(train.parse_args(argv + ["--out-dir", tmp]))
+            launches = read_counts()
+        check(launches == expected(policy_rollout=16 * cfg.fused_rollout,
+                                   ppo_grads=80 * cfg.fused_update),
+              f"P={POP} {name}: {launches}")
+        check(len(rows) == 2, f"{len(rows)} rows")
+        check_finite(rows)
+        print(f"[unfused] P={POP} {name}: launches over 2 iterations "
+              f"{launches}; iteration seconds "
+              f"{[round(r['seconds'], 4) for r in rows]} (the first with "
+              f"the warm-up), env-steps/s (all members) "
+              f"{[round(r['steps_per_s']) for r in rows]}")
+
+
+def phase_reference():
+    """One eager iteration of the reference configuration of record (1 env
+    x 2048 steps, minibatch 64, 10 epochs: 320 autograd minibatch steps),
+    cut into rollout / GAE / update after a warm-up iteration."""
+    from acas2d_tpu_torch import train
+    from acas2d_tpu_torch.ppo import learner
+    cfg = train.build_config(train.parse_args(["--preset", "reference"]))
+    reset_counts()
+    ms = breakdown(
+        lambda mark: learner.make_train_step(cfg, DEFAULT_PARAMS, "cuda",
+                                             on_phase=mark),
+        learner.init_train_state(cfg, DEFAULT_PARAMS, "cuda"))
+    launches = read_counts()
+    check(launches == expected(), f"{launches}")
+    print(f"[reference] one eager iteration {sum(ms.values()):.1f} ms "
+          f"(phases {json.dumps({k: round(v, 2) for k, v in ms.items()})}); "
+          f"launches {launches}")
+    return ms
+
+
+def phase_float64():
+    """One unfused `tpu` iteration in float64 on the card against the same
+    iteration on the CPU (same state, generator and so the same draws),
+    within F64_PARAM_ATOL and F64_METRIC_RTOL; both times."""
+    from acas2d_tpu_torch import train
+    from acas2d_tpu_torch.ppo import learner
+    argv = ["--preset", "tpu", "--dtype", "float64"]
+    cfg = train.build_config(train.parse_args(argv))
+    f64 = train.dtype_of(train.parse_args(argv))
+    cpu = learner.init_train_state(cfg, DEFAULT_PARAMS, "cpu", dtype=f64)
+    gen = torch.Generator()
+    gen.set_state(cpu.generator.get_state())
+    card = cpu.replace(
+        params=cpu.params.cuda(), opt_state=learner.AdamState(
+            mu=cpu.opt_state.mu.cuda(), nu=cpu.opt_state.nu.cuda()),
+        env_state=EnvState(**{k: v.cuda() for k, v in
+                              vars(cpu.env_state).items()}),
+        obs=cpu.obs.cuda(), generator=gen)
+    t0 = time.perf_counter()
+    new_cpu, m_cpu = learner.make_train_step(cfg, DEFAULT_PARAMS, "cpu",
+                                             dtype=f64)(cpu)
+    cpu_s = time.perf_counter() - t0
+    step = learner.make_train_step(cfg, DEFAULT_PARAMS, "cuda", dtype=f64)
+    (new_card, m_card), card_ms = synced_ms(lambda: step(card))
+    check(new_card.params.dtype == f64)
+    err = float((new_card.params.cpu() - new_cpu.params).abs().max())
+    moved = float((new_cpu.params - cpu.params).abs().max())
+    rel = {k: abs(float(m_card[k]) - float(m_cpu[k]))
+           / max(abs(float(m_cpu[k])), 1e-30) for k in m_cpu}
+    worst = max(rel, key=rel.get)
+    print(f"[float64] one unfused tpu iteration, card against CPU: params "
+          f"max abs err {err:.3e} (they moved {moved:.3e}; tolerance "
+          f"{F64_PARAM_ATOL}), worst metric {worst} rel err "
+          f"{rel[worst]:.3e} (tolerance {F64_METRIC_RTOL}); episodes "
+          f"{float(m_card['episodes'])} / {float(m_cpu['episodes'])}; "
+          f"card {card_ms:.1f} ms (its first iteration), CPU {cpu_s:.2f} s")
+    check(err <= F64_PARAM_ATOL and rel[worst] <= F64_METRIC_RTOL,
+          "float64 on the card disagrees with the CPU")
+    return err
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1264,11 +1427,18 @@ def phase_bench():
     reset_counts()
     bench.main(["--train"])
     launches = read_counts()
-    iters = 2 * 5 + 2 * 5 * 32     # 2 variants x 5 calls of 1, 2 of 32
-    print(f"[bench] launches over --train (2 variants x 5 iterations, 2 "
-          f"variants x 5 calls of 32): {launches}")
-    check(launches == expected(policy_rollout=8 * iters,
-                               ppo_grads=40 * iters))
+    # 5 calls a variant: its iterations on the fused rollout and update
+    its = {label: 5 * loop_k for label, _, _, _, loop_k
+           in bench.TRAIN_VARIANTS}
+    rollout_its = sum(its[label] for label, fr, _, _, _
+                      in bench.TRAIN_VARIANTS if fr) + 5 * 32  # + 4096 envs
+    update_its = sum(its[label] for label, _, fu, _, _
+                     in bench.TRAIN_VARIANTS if fu)
+    print(f"[bench] launches over --train ({len(its)} variants and "
+          f"best_case_4096, 5 calls each: {rollout_its} iterations on the "
+          f"fused rollout, {update_its} on the fused update): {launches}")
+    check(launches == expected(policy_rollout=8 * rollout_its,
+                               ppo_grads=40 * update_its))
     return out
 
 
@@ -1389,14 +1559,14 @@ def phase_probe(bf16_equals_f32: bool):
 
 
 def phase_bf16_training():
-    """`train --preset tpu --fused-update-bf16` for 3 iterations, then one
-    iteration of the population command with --fused-update-bf16 (the
-    in-training eval cut to 4 episodes, no re-eval, no polish): the launch
-    counters around each.  Then one more bf16 population iteration cut into
-    its phases.  Returns (solo launches, population launches, phase ms)."""
+    """`train` with SOLO_ARGV and `--fused-update-bf16` for 3 iterations,
+    then one iteration of the population command with --fused-update-bf16
+    (the in-training eval cut to 4 episodes, no re-eval, no polish): the
+    launch counters around each.  Then one more bf16 population iteration
+    cut into its phases.  Returns (solo launches, population launches, phase ms)."""
     from acas2d_tpu_torch import train
     with tempfile.TemporaryDirectory() as out:
-        argv = ["--preset", "tpu", "--fused-update-bf16",
+        argv = SOLO_ARGV + ["--fused-update-bf16",
                 "--total-steps", str(ITERS * SOLO_B * 128),
                 "--iters-per-call", "1", "--out-dir", out]
         reset_counts()
@@ -1683,6 +1853,11 @@ def main() -> int:
     phase_pipeline(dev)
     phase_replayed_loop()
     phase_trace()
+    phase_unfused_main_paths()
+    phase_replayed_loop(UNFUSED_CASES)
+    phase_unfused_population()
+    phase_reference()
+    phase_float64()
     cu, pt = "acas2d_tpu_torch/csrc/", "acas2d_tpu/ops/"
     rows = [
         ("policy_rollout", time_rollout,

@@ -479,25 +479,31 @@ def test_seed_read_from_memory_equals_the_seed_by_value(cuda, P, B):
 
 # --------------------------------- iterations per call as CUDA graphs
 
-def _loop_case(pop, bf16=False):
+FUSED = ["--fused-rollout", "--fused-update"]
+
+
+def _loop_case(pop, bf16=False, flags=FUSED, dtype=torch.float32):
     """(config, init(), eager step, loop of K = 3) at a small shape:
-    1024 envs x 32 steps (2 rollout launches), minibatch 8192, 2 epochs
-    (8 gradient launches an iteration)."""
+    1024 envs x 32 steps (2 rollout launches on the fused rollout),
+    minibatch 8192, 2 epochs (8 gradient launches an iteration on the
+    fused update), on the paths `flags` ask for."""
     argv = ["--preset", "tpu", "--n-envs", "1024", "--n-steps", "32",
             "--minibatch-size", "8192", "--n-epochs", "2", "--anneal-lr",
-            "--total-steps", str(64 * 1024 * 32)] + (
+            "--total-steps", str(64 * 1024 * 32)] + flags + (
         ["--fused-update-bf16"] if bf16 else [])
     cfg = train.build_config(train.parse_args(argv))
     if pop:
         return (cfg, lambda: population.init_population(
-                    cfg, DEFAULT_PARAMS, pop, "cuda"),
-                population.make_population_step(cfg, DEFAULT_PARAMS, "cuda"),
+                    cfg, DEFAULT_PARAMS, pop, "cuda", dtype),
+                population.make_population_step(cfg, DEFAULT_PARAMS, "cuda",
+                                                dtype=dtype),
                 population.make_population_loop(cfg, DEFAULT_PARAMS, 3,
-                                                "cuda"))
+                                                "cuda", dtype))
     return (cfg, lambda: learner.init_train_state(cfg, DEFAULT_PARAMS,
-                                                  "cuda"),
-            learner.make_train_step(cfg, DEFAULT_PARAMS, "cuda"),
-            learner.make_train_loop(cfg, DEFAULT_PARAMS, 3, "cuda"))
+                                                  "cuda", dtype=dtype),
+            learner.make_train_step(cfg, DEFAULT_PARAMS, "cuda",
+                                    dtype=dtype),
+            learner.make_train_loop(cfg, DEFAULT_PARAMS, 3, "cuda", dtype))
 
 
 class _HostCopies(TorchDispatchMode):
@@ -522,16 +528,25 @@ class _HostCopies(TorchDispatchMode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pop,bf16", [(0, False), (4, False), (0, True)],
-                         ids=["solo", "p4", "solo_bf16"])
-def test_replayed_iterations_equal_eager_steps(cuda, pop, bf16,
-                                               monkeypatch):
+@pytest.mark.parametrize("pop,bf16,flags,dtype", [
+    (0, False, FUSED, torch.float32), (4, False, FUSED, torch.float32),
+    (0, True, FUSED, torch.float32), (0, False, [], torch.float32),
+    (0, False, [], torch.float64), (4, False, [], torch.float32),
+    (0, False, ["--fused-rollout"], torch.float32),
+    (0, False, ["--fused-update"], torch.float32)],
+    ids=["solo", "p4", "solo_bf16", "unfused_solo", "unfused_solo_f64",
+         "unfused_p4", "fused_rollout_autograd", "unfused_rollout_kernel"])
+def test_replayed_iterations_equal_eager_steps(cuda, pop, bf16, flags,
+                                               dtype, monkeypatch):
     """Two calls of K = 3 (the first: one eager iteration, the capture,
     two replays; the second: three replays) equal six eager steps bit for
     bit: params, Adam moments and count, env state, obs, every metric and
-    the generators.  The launch counters go up by K x (2 + 8) a call, and
-    no op inside the capture takes a tensor from the host."""
-    cfg, init, step, loop = _loop_case(pop, bf16)
+    the generators.  The launch counters go up by K x 2 rollout and K x 8
+    gradient launches a call where those paths are fused, else by none,
+    and no op inside the capture takes a tensor from the host (the
+    unfused rollout's draws are made on the card from the seed; its
+    autograd update is captured with it)."""
+    cfg, init, step, loop = _loop_case(pop, bf16, flags, dtype)
     a, rows = init(), []
     for _ in range(6):
         a, m = step(a)
@@ -551,7 +566,8 @@ def test_replayed_iterations_equal_eager_steps(cuda, pop, bf16,
         n0 = [c.launches for c in counters]
         b, m = loop(b)
         torch.cuda.synchronize()
-        assert [c.launches - n for c, n in zip(counters, n0)] == [6, 24]
+        assert [c.launches - n for c, n in zip(counters, n0)] == [
+            6 * cfg.fused_rollout, 24 * cfg.fused_update]
         calls.append(m)
     assert guard.seen == []
     assert b.iteration == a.iteration == 6
@@ -567,10 +583,11 @@ def test_replayed_iterations_equal_eager_steps(cuda, pop, bf16,
 
 
 @pytest.mark.cuda
-def test_a_failed_iteration_capture_raises(cuda, monkeypatch):
+@pytest.mark.parametrize("flags", [FUSED, []], ids=["fused", "unfused"])
+def test_a_failed_iteration_capture_raises(cuda, flags, monkeypatch):
     """A host sync inside the iteration cannot be captured: the call
     raises, keeps no graph and does not fall back to the eager loop."""
-    cfg, init, step, loop = _loop_case(0)
+    cfg, init, step, loop = _loop_case(0, flags=flags)
     real = learner.compute_gae
 
     def syncs(rewards, *args):
@@ -590,10 +607,11 @@ def test_resume_is_exact_on_the_card(cuda, pop, tmp_path):
     """Four iterations straight equal two and a --resume for two more, bit
     for bit, solo (with --exact-eval) and with 4 members."""
     B = 1024 * 32
-    argv = ["--preset", "tpu", "--n-envs", "1024", "--n-steps", "32",
-            "--minibatch-size", "8192", "--n-epochs", "2",
-            "--eval-episodes", "4", "--eval-every", str(2 * B),
-            "--checkpoint-every", str(B), "--run-name", "r"] + (
+    argv = FUSED + [
+        "--preset", "tpu", "--n-envs", "1024", "--n-steps", "32",
+        "--minibatch-size", "8192", "--n-epochs", "2", "--eval-episodes",
+        "4", "--eval-every", str(2 * B), "--checkpoint-every", str(B),
+        "--run-name", "r"] + (
         ["--population", str(pop), "--reval-episodes", "0"] if pop
         else ["--exact-eval"])
 

@@ -45,7 +45,8 @@ def one_thread():
 def run_dir(tmp_path_factory):
     out = tmp_path_factory.mktemp("runs")
     train.run(train.parse_args([
-        "--preset", "tpu", "--device", "cpu", "--n-envs", "64",
+        "--preset", "tpu", "--fused-rollout", "--fused-update",
+        "--device", "cpu", "--n-envs", "64",
         "--n-steps", "32", "--minibatch-size", "512", "--n-epochs", "2",
         "--total-steps", str(2 * B), "--eval-every", str(B),
         "--eval-episodes", "2", "--checkpoint-every", str(B),

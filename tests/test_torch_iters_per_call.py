@@ -48,7 +48,8 @@ TINY = dict(n_envs=64, n_steps=16, fused_chunk=8, minibatch_size=256,
             n_epochs=2, total_timesteps=64 * 16 * 8, fused_rollout=True,
             fused_update=True, anneal_lr=True)
 B = 64 * 32
-TRAIN_ARGV = ["--preset", "tpu", "--device", "cpu", "--n-envs", "64",
+TRAIN_ARGV = ["--preset", "tpu", "--fused-rollout", "--fused-update",
+              "--device", "cpu", "--n-envs", "64",
               "--n-steps", "32", "--minibatch-size", "512", "--n-epochs",
               "2", "--eval-episodes", "2", "--checkpoint-every", str(B),
               "--run-name", "r", "--iters-per-call", "2"]

@@ -66,7 +66,7 @@ def _batch(jparams, T=32, B=16, seed=0):
 def test_ppo_update_matches_jax(anneal_lr):
     kw = dict(n_envs=16, n_steps=32, minibatch_size=128, n_epochs=3,
               total_timesteps=16 * 32 * 4, anneal_lr=anneal_lr)
-    jcfg, cfg = JPPOConfig(**kw), PPOConfig(**kw)
+    jcfg, cfg = JPPOConfig(**kw), PPOConfig(**kw, fused_update=True)
     model = JActorCritic()
     jparams = model.init(jax.random.PRNGKey(1), jnp.zeros((1, 8), jnp.float32))
     obs, act, logp, vals, adv, ret = _batch(jparams)

@@ -291,7 +291,7 @@ def test_tracker_never_selects_a_nan_reval(tmp_path):
 TINY = ["--preset", "tpu", "--device", "cpu", "--n-envs", "64",
         "--n-steps", "16", "--minibatch-size", "512", "--n-epochs", "2",
         "--eval-episodes", "3", "--reval-episodes", "4", "--anneal-lr",
-        "--fused-update-packed"]
+        "--fused-rollout", "--fused-update-packed"]
 
 
 def test_population_driver_writes_jax_readable_artifacts(tmp_path, capsys):
@@ -351,7 +351,8 @@ def test_population_driver_refuses_exact_eval():
 def test_solo_packed_update_is_the_fused_update(capsys, tmp_path):
     """--fused-update-packed trains the solo run exactly as the fused
     update: the port's parameters are always the kernel's flat layout."""
-    base = ["--preset", "tpu", "--device", "cpu", "--n-envs", "32",
+    base = ["--preset", "tpu", "--fused-rollout", "--fused-update",
+            "--device", "cpu", "--n-envs", "32",
             "--n-steps", "16", "--minibatch-size", "256", "--n-epochs", "1",
             "--total-steps", str(32 * 16), "--eval-episodes", "2",
             "--out-dir", str(tmp_path)]

@@ -14,8 +14,8 @@ from acas2d_tpu_torch import train
 from acas2d_tpu_torch.utils import profiling
 
 B = 64 * 16
-TINY = ["--preset", "tpu", "--device", "cpu", "--n-envs", "64",
-        "--n-steps", "16", "--minibatch-size", "512", "--n-epochs", "1",
+TINY = ["--preset", "tpu", "--fused-rollout", "--fused-update",
+        "--device", "cpu", "--n-envs", "64", "--n-steps", "16", "--minibatch-size", "512", "--n-epochs", "1",
         "--eval-episodes", "2", "--run-name", "r"]
 
 

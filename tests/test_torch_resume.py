@@ -29,8 +29,8 @@ from acas2d_tpu_torch.utils.checkpoint import CheckpointManager
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 64 * 32
-TINY = ["--preset", "tpu", "--device", "cpu", "--n-envs", "64",
-        "--n-steps", "32", "--minibatch-size", "512", "--n-epochs", "2",
+TINY = ["--preset", "tpu", "--fused-rollout", "--fused-update",
+        "--device", "cpu", "--n-envs", "64", "--n-steps", "32", "--minibatch-size", "512", "--n-epochs", "2",
         "--eval-episodes", "2", "--checkpoint-every", str(B),
         "--run-name", "r"]
 SOLO = TINY + ["--exact-eval", "--eval-every", str(2 * B)]

@@ -5,9 +5,9 @@ epochs, 2 iterations, through the plain versions of both kernels.
 It prints one JSON line of metrics per iteration, every metric is finite,
 the first iteration is evaluated (sampled spawns or the Mersenne stream),
 `--fused-update-bf16` reaches the gradient kernel (solo and population),
-options the port does not implement yet are refused (by solo and
-population runs), and the default device is CUDA.  Population runs are
-tested in test_torch_population.py."""
+the unfused rollout and the autograd update run beside the fused ones
+(solo and population), and the default device is CUDA.  Population runs
+are tested in test_torch_population.py."""
 
 import json
 import math
@@ -22,8 +22,8 @@ from acas2d_tpu_torch.config import DEFAULT_PARAMS
 from acas2d_tpu_torch.ppo import learner
 
 ITERS = 2
-TINY = ["--preset", "tpu", "--device", "cpu", "--n-envs", "64",
-        "--n-steps", "32", "--minibatch-size", "1024", "--n-epochs", "2",
+TINY = ["--preset", "tpu", "--fused-rollout", "--fused-update",
+        "--device", "cpu", "--n-envs", "64", "--n-steps", "32", "--minibatch-size", "1024", "--n-epochs", "2",
         "--total-steps", str(ITERS * 64 * 32), "--eval-episodes", "4"]
 
 
@@ -83,9 +83,20 @@ def test_iteration_seconds_include_the_metrics_read(tmp_path):
                                   ["--population", "2", "--no-fused-update"],
                                   ["--no-fused-rollout"],
                                   ["--no-fused-update"]])
-def test_driver_refuses_unported_flags(flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.run(train.parse_args(TINY + flag))
+def test_driver_runs_the_unfused_paths(flag, tmp_path):
+    """The step-by-step rollout with the fused update, and the fused rollout
+    with the autograd update, solo and population: one iteration each,
+    every metric finite."""
+    extra = ["--total-steps", str(64 * 32), "--reval-episodes", "0",
+             "--out-dir", str(tmp_path)]
+    rows = train.run(train.parse_args(TINY + flag + extra))
+    assert len(rows) == 1
+    cfg = train.build_config(train.parse_args(TINY + flag))
+    assert (cfg.fused_rollout, cfg.fused_update) == (
+        "--no-fused-rollout" not in flag, "--no-fused-update" not in flag)
+    bad = [k for k, v in rows[0].items()
+           if not all(math.isfinite(x) for x in np.ravel(v))]
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("population", [0, 2])
@@ -123,7 +134,8 @@ def test_driver_spends_a_budget_that_is_not_a_multiple_of_the_batch(
     extra = ["--out-dir", str(tmp_path)] + (
         ["--population", str(population), "--reval-episodes", "0"]
         if population else [])
-    argv = ["--device", "cpu", "--preset", "tpu", "--n-envs", "64",
+    argv = ["--device", "cpu", "--preset", "tpu", "--fused-rollout",
+            "--fused-update", "--n-envs", "64",
             "--n-steps", "32", "--minibatch-size", "512", "--total-steps",
             "3000", "--eval-episodes", "4", "--anneal-lr"] + extra
     rows = train.run(train.parse_args(argv))

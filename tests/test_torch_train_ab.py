@@ -7,8 +7,8 @@ import json
 
 from acas2d_tpu_torch import train_ab
 
-TINY = ["--preset", "tpu", "--device", "cpu", "--n-envs", "64",
-        "--n-steps", "32", "--minibatch-size", "1024", "--n-epochs", "1",
+TINY = ["--preset", "tpu", "--fused-rollout", "--fused-update",
+        "--device", "cpu", "--n-envs", "64", "--n-steps", "32", "--minibatch-size", "1024", "--n-epochs", "1",
         "--total-steps", str(3 * 64 * 32), "--eval-every", str(1 << 30),
         "--eval-episodes", "1"]
 
