@@ -69,16 +69,24 @@ class ActorCritic(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """SB3 init: orthogonal weights (gains sqrt(2) / 0.01 / 1), zero
-        biases, log_std 0."""
+        biases, log_std 0.  The orthogonal factor's QR runs on one thread:
+        its rounding depends on the intra-op thread count, and a process of
+        a launch (OMP_NUM_THREADS=1) must start from the same policy as one
+        that trains alone."""
         def init(layer: nn.Linear, gain: float):
             nn.init.orthogonal_(layer.weight, gain=gain, generator=generator)
             nn.init.zeros_(layer.bias)
 
-        for tower in (self.pi_tower, self.vf_tower):
-            for i in range(tower.n_layers):
-                init(getattr(tower, f"dense_{i}"), math.sqrt(2.0))
-        init(self.action_head, 0.01)
-        init(self.value_head, 1.0)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            for tower in (self.pi_tower, self.vf_tower):
+                for i in range(tower.n_layers):
+                    init(getattr(tower, f"dense_{i}"), math.sqrt(2.0))
+            init(self.action_head, 0.01)
+            init(self.value_head, 1.0)
+        finally:
+            torch.set_num_threads(threads)
         self.log_std.zero_()
 
     def forward(self, obs) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

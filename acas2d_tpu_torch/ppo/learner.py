@@ -44,6 +44,12 @@ two agree by distribution, not bit for bit.
 CUDA graph, whose draws and Adam scalars the host makes before the replays
 and the graph reads from device memory; on the CPU as K eager steps.
 Either equals K eager steps bit for bit.
+
+On a mesh of several processes (`parallel/mesh.py`, JAX's `mesh=`
+branches), a solo step splits its env batch over the ranks and averages
+their gradients at every minibatch step (`_solo_iteration`,
+`minibatch_grads_fn`); `shard_state` and `gather_state` move a training
+state between its whole and a rank's share.
 """
 
 from __future__ import annotations
@@ -66,7 +72,12 @@ from acas2d_tpu_torch.ops import policy_rollout, ppo_grads
 from acas2d_tpu_torch.ops import step_math as sm
 from acas2d_tpu_torch.ops.policy_rollout import (fused_policy_rollout,
                                                  seed_int32)
-from acas2d_tpu_torch.ops.ppo_grads import ppo_minibatch_grads_members
+from acas2d_tpu_torch.ops.ppo_grads import (normalize_adv_column,
+                                            ppo_minibatch_grads_members)
+from acas2d_tpu_torch.parallel.mesh import (Mesh, all_gather_rows,
+                                            all_reduce_mean, all_reduce_sum,
+                                            backend_of, env_rows, fold_seed,
+                                            gather_env_state, shard_env_state)
 from acas2d_tpu_torch.ppo.config import PPOConfig
 from acas2d_tpu_torch.ppo.gae import compute_gae
 from acas2d_tpu_torch.types import EnvState
@@ -263,6 +274,32 @@ def state_from_dict(raw: Dict, target):
            else {"generators": gens}))
 
 
+def shard_state(state, mesh: Mesh, members: bool = False):
+    """This rank's share of a whole training state (`TrainState` or
+    `population.PopulationState`), as every rank builds it from the seed:
+    its rows of the env batch and obs, and with `members` (a population
+    split by member) its members' params and Adam moments too.  Generators
+    and the rest stay whole (`parallel.mesh.shard_env_state`)."""
+    return _map_split(state, members, lambda t: shard_env_state(t, mesh))
+
+
+def gather_state(state, mesh: Mesh, members: bool = False):
+    """The whole training state from the ranks' shares (`shard_state`'s
+    inverse), on every rank, in the single process's layout."""
+    return _map_split(state, members, lambda t: gather_env_state(t, mesh))
+
+
+def _map_split(state, members: bool, fn):
+    """`state` with `fn` applied to what a mesh splits."""
+    out = state.replace(env_state=fn(state.env_state), obs=fn(state.obs))
+    if members:
+        out = out.replace(
+            params=fn(state.params), opt_state=dataclasses.replace(
+                state.opt_state, mu=fn(state.opt_state.mu),
+                nu=fn(state.opt_state.nu)))
+    return out
+
+
 def _state_shapes(state) -> Dict[str, int]:
     """The sizes that fix a state's tensor shapes (0 members = solo)."""
     return {"population": (state.params.shape[0]
@@ -275,13 +312,17 @@ def _state_shapes(state) -> Dict[str, int]:
 # ---------------------------------------------------------------- rollout
 
 def collect_rollout_fused(model: ActorCritic, state: TrainState,
-                          cfg: PPOConfig, env_params: EnvParams, seed
+                          cfg: PPOConfig, env_params: EnvParams, seed,
+                          mesh: Optional[Mesh] = None
                           ) -> Tuple[TrainState, RolloutBatch, torch.Tensor,
                                      Dict[str, torch.Tensor]]:
     """cfg.n_steps autoreset steps as n_steps / fused_chunk launches of the
     fused rollout, one seed for all chunks (an int or a (1,) int32 tensor
     on the state's device) and the step counter offset by chunk.  Returns
-    (state', batch, last_value, episode metrics)."""
+    (state', batch, last_value, episode metrics).  With a `mesh`, the state
+    is this rank's rows of the env batch (the caller folds the rank into
+    the seed, `parallel.mesh.fold_seed`) and the metrics are the whole batch's: the
+    episode sums are added over the ranks before they are divided."""
     K = cfg.fused_chunk
     if cfg.n_steps % K:
         raise ValueError(f"n_steps {cfg.n_steps} not divisible by "
@@ -314,20 +355,51 @@ def collect_rollout_fused(model: ActorCritic, state: TrainState,
         steps=flat["steps"], total_reward=flat["total_reward"],
         outcome=torch.zeros_like(es.outcome))
 
-    dones = bufs["dones"]
-    outcome = bufs["outcome"]
-    n_ep = torch.clamp(dones.sum(), min=1.0)
-    metrics = {
-        "episodes": dones.sum(),
-        "ep_return_mean": bufs["episode_return"].sum() / n_ep,
-        "ep_length_mean": bufs["episode_steps"].sum() / n_ep,
-        "goal_rate": (outcome == 1).sum() / n_ep,
-        "collision_rate": (outcome == 2).sum() / n_ep,
-        "timeout_rate": (outcome == 3).sum() / n_ep,
-    }
+    metrics = episode_metrics(episode_sums(
+        bufs["dones"], bufs["episode_return"], bufs["episode_steps"],
+        bufs["outcome"], False, torch.float32), mesh)
     new_state = state.replace(env_state=env_state, obs=obs,
                               iteration=state.iteration + 1)
     return new_state, batch, last_value, metrics
+
+
+EPISODE_KEYS = ("episodes", "ep_return_mean", "ep_length_mean", "goal_rate",
+                "collision_rate", "timeout_rate")
+
+
+def per_member(x: torch.Tensor) -> torch.Tensor:
+    """A (T, P, B) rollout field as (P, T * B), each member's row
+    contiguous: a reduction over its last axis sums every member's values
+    in the same order whatever P is (a reduction over axes (0, 2) of the
+    (T, P, B) tensor need not), so that a rank's members reduce as the
+    single process's do."""
+    return x.transpose(0, 1).reshape(x.shape[1], -1)
+
+
+def episode_sums(dones: torch.Tensor, episode_return: torch.Tensor,
+                 episode_steps: torch.Tensor, outcome: torch.Tensor,
+                 members: bool, dtype) -> torch.Tensor:
+    """The sums behind JAX's six episode metrics: episodes ended, their
+    returns and lengths, and their goals, collisions and timeouts, stacked
+    as a (6,) tensor of `dtype`, or with `members` (of (T, P, B) fields) a
+    (6, P) one."""
+    def total(x):
+        return (per_member(x).sum(-1) if members else x.sum()).to(dtype)
+    return torch.stack([total(dones), total(episode_return),
+                        total(episode_steps), total(outcome == 1),
+                        total(outcome == 2), total(outcome == 3)])
+
+
+def episode_metrics(sums: torch.Tensor, mesh: Optional[Mesh] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX's episode metrics from `episode_sums`: every sum over the
+    episodes ended, at least 1.  With a `mesh` the sums are first added
+    over its ranks (one collective)."""
+    if mesh is not None:
+        sums = all_reduce_sum(sums, mesh)
+    n_ep = torch.clamp(sums[0], min=1.0)
+    return {"episodes": sums[0],
+            **{k: v / n_ep for k, v in zip(EPISODE_KEYS[1:], sums[1:])}}
 
 
 # The unfused rollout's draws: the counter-based hash of the kernels
@@ -349,19 +421,22 @@ class RolloutDraws:
 
 def rollout_draws(seed, n_steps: int, shape: Sequence[int],
                   env_params: EnvParams, dtype=torch.float32,
-                  device=None) -> RolloutDraws:
+                  device=None, first_env: int = 0) -> RolloutDraws:
     """Every draw of an unfused rollout of `n_steps` steps over envs of
     batch `shape`, made on `device` at once from `seed` (an int, or a (1,)
     int32 tensor there, as the fused rollout takes it): env e of the
     flattened batch, step t and salt k hash to
-    `step_math.hash32(rng_base(seed, e), t, k)`.  A float32 uniform is a
+    `step_math.hash32(rng_base(seed, first_env + e), t, k)`.  A rank of a
+    mesh passes its first env's index in the whole batch, so that its
+    draws are those rows of the single process's.  A float32 uniform is a
     hash's top 24 bits (the kernels' `_u01_hash`); a float64 one adds 29
     bits of a second hash (salt + LOW_BITS_SALT).  The noise is the
     kernels' Box-Muller of salts NOISE_SALTS; each step's respawns take
     `core.spawn_width` uniforms from SPAWN_SALT on."""
     dev = resolve_device(device)
     n = math.prod(shape)
-    base = sm.rng_base(seed, torch.arange(n, device=dev))
+    base = sm.rng_base(seed, torch.arange(first_env, first_env + n,
+                                          device=dev))
     steps = torch.arange(n_steps, device=dev)[:, None]
 
     def uniform(salt):
@@ -396,7 +471,8 @@ def _envs_rows(es: EnvState, rows: slice) -> EnvState:
 @torch.no_grad()
 def rollout_members(params: torch.Tensor, env_state: EnvState,
                     obs: torch.Tensor, cfg: PPOConfig,
-                    env_params: EnvParams, draws: RolloutDraws
+                    env_params: EnvParams, draws: RolloutDraws,
+                    mesh: Optional[Mesh] = None
                     ) -> Tuple[EnvState, torch.Tensor, RolloutBatch,
                                torch.Tensor, Dict[str, torch.Tensor]]:
     """cfg.n_steps autoreset steps of P member policies, member m's on its
@@ -409,7 +485,8 @@ def rollout_members(params: torch.Tensor, env_state: EnvState,
 
     params (P, N_PARAMS); env_state leaves and obs (P, B, ...); draws of
     batch shape (P, B).  Returns (env_state', obs', batch with (T, P, B,
-    ...) leaves, last values (P, B), JAX's six episode metrics (P,))."""
+    ...) leaves, last values (P, B), JAX's six episode metrics (P,)); with
+    a `mesh` (the envs a rank's rows), the metrics are the whole batch's."""
     P, B = obs.shape[:2]
     T, PB, dtype = cfg.n_steps, P * B, params.dtype
     noise = draws.noise.reshape(T, P, B).to(dtype)
@@ -440,32 +517,27 @@ def rollout_members(params: torch.Tensor, env_state: EnvState,
                          log_probs=b["log_probs"], values=b["values"],
                          rewards=b["reward"], dones=b["done"])
     last_values = members_forward(params, obs)[1]
-    episodes = b["done"].sum(dim=(0, 2)).to(dtype)
-    n_ep = torch.clamp(episodes, min=1.0)
-    outcome = b["outcome"]
-    metrics = {
-        "episodes": episodes,
-        "ep_return_mean": b["episode_return"].sum(dim=(0, 2)) / n_ep,
-        "ep_length_mean": b["episode_steps"].sum(dim=(0, 2)).to(dtype) / n_ep,
-        "goal_rate": (outcome == 1).sum(dim=(0, 2)).to(dtype) / n_ep,
-        "collision_rate": (outcome == 2).sum(dim=(0, 2)).to(dtype) / n_ep,
-        "timeout_rate": (outcome == 3).sum(dim=(0, 2)).to(dtype) / n_ep,
-    }
+    metrics = episode_metrics(episode_sums(
+        b["done"], b["episode_return"], b["episode_steps"], b["outcome"],
+        True, dtype), mesh)
     return _envs_view(es, 1, (P, B)), obs, batch, last_values, metrics
 
 
 def collect_rollout(state: TrainState, cfg: PPOConfig,
-                    env_params: EnvParams, draws: RolloutDraws
+                    env_params: EnvParams, draws: RolloutDraws,
+                    mesh: Optional[Mesh] = None
                     ) -> Tuple[TrainState, RolloutBatch, torch.Tensor,
                                Dict[str, torch.Tensor]]:
     """The unfused rollout of one policy (JAX `collect_rollout`): the P = 1
     call of `rollout_members`, draws of batch shape (B,).  Returns
-    (state', batch with (T, B, ...) leaves, last_value (B,), metrics)."""
+    (state', batch with (T, B, ...) leaves, last_value (B,), metrics); with
+    a `mesh`, as `collect_rollout_fused`'s."""
     B = state.obs.shape[0]
     es, obs, batch, last_values, metrics = rollout_members(
         state.params[None], _envs_view(state.env_state, 1, (1, B)),
         state.obs[None], cfg, env_params,
-        RolloutDraws(noise=draws.noise[:, None], spawn=draws.spawn[:, None]))
+        RolloutDraws(noise=draws.noise[:, None], spawn=draws.spawn[:, None]),
+        mesh)
     batch = RolloutBatch(**{f.name: getattr(batch, f.name)[:, 0]
                             for f in dataclasses.fields(RolloutBatch)})
     new_state = state.replace(env_state=_envs_view(es, 2, (B,)), obs=obs[0],
@@ -554,10 +626,67 @@ def draw_perms(cfg: PPOConfig, generators: Sequence[torch.Generator],
                         for _ in range(cfg.n_epochs)])
 
 
+def minibatch_grads_fn(cfg: PPOConfig, mesh: Optional[Mesh] = None
+                       ) -> Callable:
+    """grads(params (P, N_PARAMS), mb (P, M, 13)) -> (grads (P, N_PARAMS),
+    aux {k: (P,)}): a minibatch step's gradients, from the fused kernel
+    under cfg.fused_update, else by autograd (`ppo_loss_grads`).
+
+    With a `mesh` of a process group (JAX `make_fused_grads_fn(cfg, mesh)`
+    and the XLA update it stands beside), every rank holds the whole
+    minibatch and computes the gradients of its rows [r M / W, (r + 1) M /
+    W); their mean over the ranks, of the gradients and the loss
+    statistics in one flat buffer, is the whole minibatch's (JAX's
+    `pmean`).  SB3's advantage normalisation needs the whole minibatch's
+    statistics, so it runs before the rows are taken
+    (`normalize_adv_column`, JAX learner.py:355-359), and the rows' own
+    step does not normalise.  A mesh of one process keeps the
+    single-process step, which normalises in the kernel or the loss.
+    Refuses the fused update when a rank's rows are not a multiple of 128,
+    as JAX does."""
+    def local(params, mb, normalize):
+        if cfg.fused_update:
+            return ppo_minibatch_grads_members(
+                params, mb, clip_range=cfg.clip_range, vf_coef=cfg.vf_coef,
+                ent_coef=cfg.ent_coef, normalize_advantage=normalize,
+                bf16=cfg.fused_update_bf16)
+        return ppo_loss_grads(params, mb, dataclasses.replace(
+            cfg, normalize_advantage=normalize))
+
+    if mesh is None or not mesh.distributed:
+        return lambda params, mb: local(params, mb, cfg.normalize_advantage)
+    W, M = mesh.size, cfg.minibatch_size
+    if M % W or (cfg.fused_update and (M // W) % 128):
+        raise ValueError(
+            f"fused_update needs (minibatch_size / n_devices) % 128 == 0, "
+            f"got minibatch {M} over {W} devices" if cfg.fused_update else
+            f"the sharded update splits every minibatch evenly over the "
+            f"ranks: minibatch {M} over {W} devices")
+    rows = env_rows(M, mesh)
+    before = cfg.normalize_advantage and W > 1
+
+    def sharded(params, mb):
+        if before:
+            mb = normalize_adv_column(mb)
+        grads, aux = local(params, mb[:, rows],
+                           cfg.normalize_advantage and not before)
+        keys = list(aux)
+        flat = all_reduce_mean(torch.cat(
+            [grads.reshape(-1)] + [aux[k].to(grads.dtype) for k in keys]),
+            mesh)
+        P = grads.shape[0]
+        out = flat[grads.numel():].view(len(keys), P)
+        return (flat[:grads.numel()].view_as(grads),
+                {k: out[i].to(aux[k].dtype) for i, k in enumerate(keys)})
+
+    return sharded
+
+
 def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
                        optimizer: Optimizer, data: torch.Tensor,
                        cfg: PPOConfig, perms,
-                       scalars: Optional[torch.Tensor] = None
+                       scalars: Optional[torch.Tensor] = None,
+                       grads_fn: Optional[Callable] = None
                        ) -> Tuple[torch.Tensor, AdamState,
                                   Dict[str, torch.Tensor]]:
     """n_epochs x n_minibatches of clipped-PPO Adam steps (SB3 PPO.train)
@@ -573,7 +702,9 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
     from the Adam count.  Under cfg.fused_update every minibatch step of
     all members is one launch of the gradient kernel, with bf16 operands
     under cfg.fused_update_bf16; else its gradients come from autograd
-    (`ppo_loss_grads`).  Metrics are (P,) means over the steps."""
+    (`ppo_loss_grads`).  `grads_fn` (`minibatch_grads_fn`, by default that
+    of one process) takes the steps' gradients.  Metrics are (P,) means
+    over the steps."""
     P, N = data.shape[:2]
     block = cfg.shuffle_block
     n_blocks = N // block
@@ -582,6 +713,8 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
         scalars = optimizer.scalars(
             opt_state.count, cfg.n_epochs * cfg.n_minibatches,
             params.dtype).to(data.device)
+    if grads_fn is None:
+        grads_fn = minibatch_grads_fn(cfg)
     blocks = data.view(P, n_blocks, block, data.shape[-1])
     members = torch.arange(P, device=data.device)[:, None]
     aux_all: Dict[str, List[torch.Tensor]] = {}
@@ -589,21 +722,48 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
         mbs = blocks[members, perms[epoch]].view(
             P, cfg.n_minibatches, cfg.minibatch_size, data.shape[-1])
         for j in range(cfg.n_minibatches):
-            if cfg.fused_update:
-                grads, aux = ppo_minibatch_grads_members(
-                    params, mbs[:, j], clip_range=cfg.clip_range,
-                    vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
-                    normalize_advantage=cfg.normalize_advantage,
-                    bf16=cfg.fused_update_bf16)
-            else:
-                grads, aux = ppo_loss_grads(params, mbs[:, j], cfg)
+            grads, aux = grads_fn(params, mbs[:, j])
             updates, opt_state = optimizer.update(
                 grads, opt_state, scalars[epoch * cfg.n_minibatches + j])
             params = params + updates
             for k, v in aux.items():
                 aux_all.setdefault(k, []).append(v)
-    metrics = {k: torch.stack(v).mean(0) for k, v in aux_all.items()}
+    metrics = {k: torch.stack(v, -1).mean(-1) for k, v in aux_all.items()}
     return params, opt_state, metrics
+
+
+def pack_batch(batch: RolloutBatch, advantages: torch.Tensor,
+               returns: torch.Tensor, dtype) -> torch.Tensor:
+    """The six minibatch fields of a (T, *S) rollout folded into one
+    (T, *S, 13) matrix of `dtype`: obs 8, raw action, old log-prob, old
+    value, advantage, return (the fused kernel's packed layout)."""
+    fields = (batch.obs, batch.actions, batch.log_probs, batch.values,
+              advantages, returns)
+    lead = tuple(batch.values.shape)
+    return torch.cat([x.reshape(lead + (-1,)).to(dtype) for x in fields],
+                     dim=-1)
+
+
+def gather_batch(data: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The ranks' packed (T, B / W, 13) rollouts as the whole batch's
+    (T, B, 13), envs in the single process's order (one collective)."""
+    return all_gather_rows(data.transpose(0, 1), mesh).transpose(
+        0, 1).contiguous()
+
+
+def _update_one(params: torch.Tensor, opt_state: AdamState,
+                optimizer: Optimizer, data: torch.Tensor, cfg: PPOConfig,
+                perms, scalars: Optional[torch.Tensor],
+                grads_fn: Optional[Callable] = None
+                ) -> Tuple[torch.Tensor, AdamState, Dict[str, torch.Tensor]]:
+    """`ppo_update_members` of one policy on its (N, 13) batch."""
+    one = AdamState(mu=opt_state.mu[None], nu=opt_state.nu[None],
+                    count=opt_state.count)
+    params, one, metrics = ppo_update_members(
+        params[None], one, optimizer, data[None], cfg, perms, scalars,
+        grads_fn)
+    return (params[0], AdamState(mu=one.mu[0], nu=one.nu[0], count=one.count),
+            {k: v[0] for k, v in metrics.items()})
 
 
 def ppo_update(params: torch.Tensor, opt_state: AdamState,
@@ -613,20 +773,12 @@ def ppo_update(params: torch.Tensor, opt_state: AdamState,
                ) -> Tuple[torch.Tensor, AdamState, Dict[str, torch.Tensor]]:
     """The solo update: `ppo_update_members` for one policy.
 
-    The six minibatch fields are folded into one (N, 13) matrix; `perms`
-    are the epochs' E x N / block indices (`as_perms`), `scalars` as in
-    `ppo_update_members`."""
-    N = cfg.batch_size
-    fields = (batch.obs, batch.actions, batch.log_probs, batch.values,
-              advantages, returns)
-    data = torch.cat([x.reshape(N, -1).to(params.dtype) for x in fields],
-                     dim=1)
-    one = AdamState(mu=opt_state.mu[None], nu=opt_state.nu[None],
-                    count=opt_state.count)
-    params, one, metrics = ppo_update_members(
-        params[None], one, optimizer, data[None], cfg, perms, scalars)
-    return (params[0], AdamState(mu=one.mu[0], nu=one.nu[0], count=one.count),
-            {k: v[0] for k, v in metrics.items()})
+    The six minibatch fields are folded into one (N, 13) matrix
+    (`pack_batch`); `perms` are the epochs' E x N / block indices
+    (`as_perms`), `scalars` as in `ppo_update_members`."""
+    data = pack_batch(batch, advantages, returns, params.dtype)
+    return _update_one(params, opt_state, optimizer,
+                       data.view(cfg.batch_size, -1), cfg, perms, scalars)
 
 
 # ------------------------------------------------------------- train step
@@ -659,32 +811,35 @@ def _check_matmuls(cfg: PPOConfig, dev: torch.device) -> None:
 
 
 def iteration_inputs(cfg: PPOConfig, state, n_iters: int, device,
-                     seed: Optional[int] = None, perms=None
+                     seed: Optional[int] = None, perms=None,
+                     seed_gens: Sequence[int] = (0,)
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """What the next `n_iters` PPO iterations of `state` (a `TrainState`
     or a `population.PopulationState`) take besides the state: the random
     draws, in the order an eager step makes them (each iteration's
-    rollout seed from the first generator, then each epoch's block
-    permutation of every member from its own generator), and the Adam
-    steps' scalars from the state's Adam count on.  Returns (seeds
-    (n, 1) int32, perms (n, E, P, N / block) int64, scalars (n, E * M, 3)
-    in the params' dtype), copied to `device` at once.  `seed` and `perms` (a
-    sequence of per-epoch arrays, see `as_perms`) replace one
-    iteration's draws: the parity tests pass the JAX step's."""
+    rollout seed from each generator of `seed_gens`, by default the first
+    alone, then each epoch's block permutation of every member from its
+    own generator), and the Adam steps' scalars from the state's Adam
+    count on.  Returns (seeds (n, len(seed_gens)) int32, perms (n, E, P,
+    N / block) int64, scalars (n, E * M, 3) in the params' dtype), copied
+    to `device` at once.  `seed` and `perms` (a sequence of per-epoch
+    arrays, see `as_perms`) replace one iteration's draws: the parity
+    tests pass the JAX step's."""
     gens = state.generators
     n_blocks = cfg.batch_size // cfg.shuffle_block
     seeds, all_perms = [], []
     for _ in range(n_iters):
-        seeds.append(seed_int32(
+        seeds.append([seed_int32(
             seed if seed is not None else
-            int(torch.randint(0, INT32_MAX, (), generator=gens[0]))))
+            int(torch.randint(0, INT32_MAX, (), generator=gens[i])))
+            for i in seed_gens])
         all_perms.append(as_perms(perms, len(gens), n_blocks)
                          if perms is not None
                          else draw_perms(cfg, gens, n_blocks))
     n_steps = cfg.n_epochs * cfg.n_minibatches
     scalars = Optimizer(cfg).scalars(state.opt_state.count, n_iters * n_steps,
                                      state.params.dtype)
-    return (torch.tensor(seeds, dtype=torch.int32).view(n_iters, 1)
+    return (torch.tensor(seeds, dtype=torch.int32).view(n_iters, -1)
             .to(device), torch.stack(all_perms).to(device),
             scalars.view(n_iters, n_steps, 3).to(device))
 
@@ -693,38 +848,71 @@ def _no_mark(name: str) -> None:
     pass
 
 
+def env_sharded(cfg: PPOConfig, mesh: Optional[Mesh]) -> bool:
+    """Whether a solo run splits its env batch over the mesh's ranks (JAX
+    train.py:392-398): on a mesh of a process group whose size divides
+    n_envs.  Otherwise every rank runs the whole step, with the same bits
+    (the driver says so)."""
+    return (mesh is not None and mesh.distributed
+            and cfg.n_envs % mesh.size == 0)
+
+
 def _solo_iteration(cfg: PPOConfig, env_params: EnvParams,
-                    dev: torch.device, dtype=torch.float32) -> Callable:
+                    dev: torch.device, dtype=torch.float32,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """iteration(state, seed, perms, scalars, mark, draws=None) -> (state,
     metrics): one solo PPO iteration on its inputs (`iteration_inputs`'
     rows), drawing nothing from the generator.  The unfused rollout makes
-    its draws from the seed (`rollout_draws`) unless `draws` are given."""
+    its draws from the seed (`rollout_draws`) unless `draws` are given.
+
+    With a `mesh` (`env_sharded`), the state's env batch and obs are this
+    rank's rows (`parallel.mesh.shard_env_state`), and the params, Adam
+    state and generator are the same on every rank.  The fused rollout
+    takes the seed plus rank * 7919 (`fold_seed`, JAX learner.py:190-193);
+    the unfused one draws the single process's rows (`rollout_draws`'
+    `first_env`).  GAE stays with each env; the packed batch is gathered
+    once into the single process's order, and every minibatch step
+    averages the ranks' gradients of their rows (`minibatch_grads_fn`).
+    Explained variance is taken on the gathered batch, and the episode
+    metrics from sums over the ranks."""
     model = ActorCritic(device=dev)
     optimizer = Optimizer(cfg)
+    if mesh is not None and not mesh.distributed:
+        mesh = None
+    grads_fn = minibatch_grads_fn(cfg, mesh)
+    first = env_rows(cfg.n_envs, mesh).start if mesh is not None else 0
 
     def iteration(state: TrainState, seed, perms, scalars, mark,
                   draws: Optional[RolloutDraws] = None):
         check_state(cfg, state, dtype, draws)
         if cfg.fused_rollout:
             state, batch, last_value, env_metrics = collect_rollout_fused(
-                model, state, cfg, env_params, seed)
+                model, state, cfg, env_params,
+                seed if mesh is None else fold_seed(seed, mesh), mesh)
         else:
             if draws is None:
-                draws = rollout_draws(seed, cfg.n_steps, (cfg.n_envs,),
-                                      env_params, dtype, dev)
+                draws = rollout_draws(seed, cfg.n_steps,
+                                      (state.obs.shape[0],), env_params,
+                                      dtype, dev, first)
             state, batch, last_value, env_metrics = collect_rollout(
-                state, cfg, env_params, draws)
+                state, cfg, env_params, draws, mesh)
         mark("rollout")
         advantages, returns = compute_gae(
             batch.rewards, batch.values, batch.dones, last_value,
             cfg.gamma, cfg.gae_lambda)
         mark("gae")
-        params, opt_state, opt_metrics = ppo_update(
-            state.params, state.opt_state, optimizer, batch, advantages,
-            returns, cfg, perms, scalars)
+        data = pack_batch(batch, advantages, returns, state.params.dtype)
+        values = batch.values
+        if mesh is not None:
+            data = gather_batch(data, mesh)
+            values = data[..., ppo_grads._VAL].contiguous()
+            returns = data[..., ppo_grads._RET].contiguous()
+        params, opt_state, opt_metrics = _update_one(
+            state.params, state.opt_state, optimizer,
+            data.view(cfg.batch_size, -1), cfg, perms, scalars, grads_fn)
         mark("update")
         explained_var = 1.0 - (
-            torch.var(returns - batch.values, correction=0)
+            torch.var(returns - values, correction=0)
             / (torch.var(returns, correction=0) + 1e-8))
         state = state.replace(params=params, opt_state=opt_state)
         metrics = {**env_metrics, **opt_metrics,
@@ -745,17 +933,18 @@ def check_state(cfg: PPOConfig, state, dtype, draws) -> None:
 
 
 def eager_step(iteration: Callable, cfg: PPOConfig, dev: torch.device,
-               on_phase: Optional[Callable[[str], None]] = None) -> Callable:
+               on_phase: Optional[Callable[[str], None]] = None,
+               seed_gens: Sequence[int] = (0,)) -> Callable:
     """step(state, seed=None, perms=None, draws=None) -> (state, metrics):
-    `iteration` on the state's next draws (`iteration_inputs`; `draws`,
-    an unfused rollout's `RolloutDraws`, replace those made from the
-    seed), run eagerly."""
+    `iteration` on the state's next draws (`iteration_inputs`, the seeds
+    from the generators `seed_gens`; `draws`, an unfused rollout's
+    `RolloutDraws`, replace those made from the seed), run eagerly."""
     mark = on_phase if on_phase is not None else _no_mark
 
     def step(state, seed: Optional[int] = None, perms=None,
              draws: Optional[RolloutDraws] = None):
         seeds, all_perms, scalars = iteration_inputs(cfg, state, 1, dev,
-                                                     seed, perms)
+                                                     seed, perms, seed_gens)
         return iteration(state, seeds[0], all_perms[0], scalars[0], mark,
                          draws)
 
@@ -765,22 +954,26 @@ def eager_step(iteration: Callable, cfg: PPOConfig, dev: torch.device,
 def make_train_step(cfg: PPOConfig, env_params: EnvParams,
                     device=None,
                     on_phase: Optional[Callable[[str], None]] = None,
-                    dtype=torch.float32) -> Callable:
+                    dtype=torch.float32,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Returns train_step(state, seed=None, perms=None, draws=None) ->
     (state, metrics): one PPO iteration (rollout, GAE, epochs of Adam
     steps, on the paths cfg.fused_rollout and cfg.fused_update choose) of
     a `dtype` state, run eagerly.  Metrics are 0-dim tensors on the
     state's device.  `on_phase(name)`, when given, is called as each phase
     ends ("rollout", "gae", "update"), so a caller can time the phases of
-    this very step.
+    this very step.  With a `mesh` on which the run is `env_sharded`, the
+    step is a rank's share of the whole batch's (`_solo_iteration`): the
+    state holds the rank's envs.
 
     It refuses what the port does not run (`check_ported`);
     `fused_update_packed` is the fused update here."""
     dev = resolve_device(device)
     check_ported(cfg, dtype)
     _check_matmuls(cfg, dev)
-    return eager_step(_solo_iteration(cfg, env_params, dev, dtype), cfg, dev,
-                      on_phase)
+    mesh = mesh if env_sharded(cfg, mesh) else None
+    return eager_step(_solo_iteration(cfg, env_params, dev, dtype, mesh),
+                      cfg, dev, on_phase)
 
 
 # ------------------------------------------------- iterations per call
@@ -820,8 +1013,9 @@ def _with_leaves(state, leaves: Sequence[torch.Tensor], iterations: int,
 
 
 # the kernels a training iteration launches, whose counters a replay adds to
-_COUNTERS = (policy_rollout.fused_policy_rollout_members,
-             ppo_grads.ppo_minibatch_grads_members)
+KERNELS = {"policy_rollout": policy_rollout.fused_policy_rollout_members,
+           "ppo_grads": ppo_grads.ppo_minibatch_grads_members}
+_COUNTERS = tuple(KERNELS.values())
 
 
 class _IterationGraph:
@@ -907,14 +1101,16 @@ class ReplayedLoop:
     to the eager loop."""
 
     def __init__(self, iteration: Callable, cfg: PPOConfig,
-                 iters_per_call: int):
+                 iters_per_call: int, seed_gens: Sequence[int] = (0,)):
         self.iteration, self.cfg = iteration, cfg
         self.iters_per_call = iters_per_call
+        self.seed_gens = tuple(seed_gens)
         self._graphs: Dict[Tuple, _IterationGraph] = {}
 
     def __call__(self, state):
         K = self.iters_per_call
-        inputs = iteration_inputs(self.cfg, state, K, state.params.device)
+        inputs = iteration_inputs(self.cfg, state, K, state.params.device,
+                                  seed_gens=self.seed_gens)
         key = tuple((tuple(t.shape), t.dtype, t.device)
                     for t in _state_leaves(state))
         graph = self._graphs.get(key)
@@ -937,23 +1133,36 @@ class ReplayedLoop:
         return state, dict(zip(graph.names, torch.stack(packed).unbind(1)))
 
 
+def replays(dev: torch.device, mesh: Optional[Mesh]) -> bool:
+    """Whether K iterations a call are replays of a captured CUDA graph:
+    on the card, alone or over NCCL, whose collectives a graph holds.
+    Under gloo (on the CPU, or ranks sharing a card) a call is K eager
+    steps, which are the same bits."""
+    return dev.type == "cuda" and backend_of(mesh) in (None, "nccl")
+
+
 def make_train_loop(cfg: PPOConfig, env_params: EnvParams,
                     iters_per_call: int, device=None,
-                    dtype=torch.float32) -> Callable:
+                    dtype=torch.float32,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Returns train_loop(state) -> (state, metrics): `iters_per_call` PPO
     iterations a call, metrics stacked on a leading (K,) axis, as K calls
     of `make_train_step`'s step would give them (the counterpart of JAX
     `learner.make_train_loop`, a `lax.scan` of the step).  On the CPU it
     is those K eager steps; on the card, replays of one captured iteration
-    (`ReplayedLoop`)."""
+    (`ReplayedLoop`); over NCCL the graph holds the iteration's
+    collectives, which its first, eager iteration has issued before the
+    capture (`replays`)."""
     dev = resolve_device(device)
     check_ported(cfg, dtype)
     _check_matmuls(cfg, dev)
-    if dev.type != "cuda":
+    if not replays(dev, mesh):
         return stacked_loop(make_train_step(cfg, env_params, dev,
-                                            dtype=dtype), iters_per_call)
-    return ReplayedLoop(_solo_iteration(cfg, env_params, dev, dtype), cfg,
-                        iters_per_call)
+                                            dtype=dtype, mesh=mesh),
+                            iters_per_call)
+    mesh = mesh if env_sharded(cfg, mesh) else None
+    return ReplayedLoop(_solo_iteration(cfg, env_params, dev, dtype, mesh),
+                        cfg, iters_per_call)
 
 
 # -------------------------------------------------------------- evaluation

@@ -26,8 +26,9 @@ member axis out:
     unfused one autograd backward of the sum of the members' losses,
     which gives each member its own gradient.
 
-The JAX package shards members over several chips (`population.py:269-273`);
-the port runs on one card.
+As the JAX package shards members over several chips
+(`population.py:269-273`), a launch of several processes splits the
+members over its ranks (`member_sharded`), with no collective in a step.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from acas2d_tpu_torch.config import EnvParams
 from acas2d_tpu_torch.envs import vector
 from acas2d_tpu_torch.models.actor_critic import members_forward
 from acas2d_tpu_torch.ops.policy_rollout import fused_policy_rollout_members
+from acas2d_tpu_torch.parallel.mesh import Mesh, env_rows, fold_seed
 from acas2d_tpu_torch.ppo import learner
 from acas2d_tpu_torch.ppo.config import PPOConfig
 from acas2d_tpu_torch.ppo.gae import compute_gae
@@ -130,50 +132,80 @@ def collect_rollout_fused_members(state: PopulationState, cfg: PPOConfig,
         steps=flat["steps"], total_reward=flat["total_reward"],
         outcome=torch.zeros_like(es.outcome))
 
-    dones = bufs["dones"]                               # (T, P, B)
-    outcome = bufs["outcome"]
-    episodes = dones.sum(dim=(0, 2))
-    n_ep = torch.clamp(episodes, min=1.0)
-    metrics = {
-        "episodes": episodes,
-        "ep_return_mean": bufs["episode_return"].sum(dim=(0, 2)) / n_ep,
-        "ep_length_mean": bufs["episode_steps"].sum(dim=(0, 2)) / n_ep,
-        "goal_rate": (outcome == 1).sum(dim=(0, 2)) / n_ep,
-        "collision_rate": (outcome == 2).sum(dim=(0, 2)) / n_ep,
-        "timeout_rate": (outcome == 3).sum(dim=(0, 2)) / n_ep,
-    }
+    metrics = learner.episode_metrics(learner.episode_sums(
+        bufs["dones"], bufs["episode_return"], bufs["episode_steps"],
+        bufs["outcome"], True, torch.float32))
     new_state = state.replace(env_state=env_state, obs=obs,
                               iteration=state.iteration + 1)
     return new_state, batch, last_values, metrics
 
 
+def member_sharded(pop: int, mesh: Optional[Mesh]) -> bool:
+    """Whether a population splits its members over the mesh's ranks (JAX
+    train.py:388-391): on a mesh of a process group whose size divides P.
+    Otherwise every rank trains every member, with the same bits (the
+    driver says so)."""
+    return mesh is not None and mesh.distributed and pop % mesh.size == 0
+
+
+def seed_generators(cfg: PPOConfig, pop: int,
+                    mesh: Optional[Mesh]) -> Tuple[int, ...]:
+    """The members whose generators give an iteration's rollout seeds:
+    member 0's alone, but for a fused rollout of members split over W
+    ranks, each rank's first member's (JAX population.py:157-164, where
+    each shard takes its first member's key).  Every rank holds every
+    member's generator and draws every seed, so that the generators stay
+    the same on every rank."""
+    if cfg.fused_rollout and member_sharded(pop, mesh):
+        return tuple(range(0, pop, pop // mesh.size))
+    return (0,)
+
+
 def _population_iteration(cfg: PPOConfig, env_params: EnvParams,
-                          dtype=torch.float32) -> Callable:
+                          dtype=torch.float32,
+                          mesh: Optional[Mesh] = None) -> Callable:
     """iteration(state, seed, perms, scalars, mark, draws=None) -> (state,
     metrics): one PPO iteration of every member on its inputs
     (`learner.iteration_inputs`' rows), drawing nothing from the
     generators; the unfused rollout's draws come from the seed, as the
-    fused rollout's do, unless `draws` are given."""
+    fused rollout's do, unless `draws` are given.
+
+    With a `mesh` (`member_sharded`), the state's params, Adam moments,
+    envs and obs are this rank's members (`parallel.mesh.shard_env_state`
+    along the member axis) and its generators are every member's; the
+    step runs no collective.  The fused rollout takes this rank's seed
+    (`seed_generators`) plus rank * 7919; the unfused one draws the single
+    process's rows of its members, so that it is the single process's step
+    bit for bit.  Each member's permutations come from its own generator."""
     optimizer = learner.Optimizer(cfg)
+    if mesh is not None and not mesh.distributed:
+        mesh = None
 
     def iteration(state: PopulationState, seed, perms, scalars, mark,
                   draws: Optional[learner.RolloutDraws] = None):
         learner.check_state(cfg, state, dtype, draws)
+        P, B = state.obs.shape[:2]
+        first = 0
+        if mesh is not None:
+            first = env_rows(len(state.generators), mesh).start
+            perms = perms[:, first:first + P]
         if cfg.fused_rollout:
+            if mesh is not None:
+                seed = fold_seed(seed[mesh.rank:mesh.rank + 1], mesh)
             state, batch, last_values, env_metrics = (
                 collect_rollout_fused_members(state, cfg, env_params, seed))
         else:
             if draws is None:
                 draws = learner.rollout_draws(
-                    seed, cfg.n_steps, tuple(state.obs.shape[:2]),
-                    env_params, dtype, state.obs.device)
+                    seed, cfg.n_steps, (P, B), env_params, dtype,
+                    state.obs.device, first * B)
             env_state, obs, batch, last_values, env_metrics = (
                 learner.rollout_members(state.params, state.env_state,
                                         state.obs, cfg, env_params, draws))
             state = state.replace(env_state=env_state, obs=obs,
                                   iteration=state.iteration + 1)
         mark("rollout")
-        T, P, B = batch.values.shape
+        T = batch.values.shape[0]
         advantages, returns = compute_gae(
             batch.rewards.view(T, P * B), batch.values.view(T, P * B),
             batch.dones.view(T, P * B), last_values.reshape(P * B),
@@ -181,18 +213,17 @@ def _population_iteration(cfg: PPOConfig, env_params: EnvParams,
         advantages = advantages.view(T, P, B)
         returns = returns.view(T, P, B)
         mark("gae")
-        fields = (batch.obs, batch.actions, batch.log_probs, batch.values,
-                  advantages, returns)
-        data = torch.cat([x.reshape(T, P, B, -1).to(dtype)
-                          for x in fields], dim=-1)
+        data = learner.pack_batch(batch, advantages, returns, dtype)
         data = data.transpose(0, 1).reshape(P, T * B, data.shape[-1])
         params, opt_state, opt_metrics = learner.ppo_update_members(
             state.params, state.opt_state, optimizer, data, cfg, perms,
             scalars)
         mark("update")
         explained_var = 1.0 - (
-            torch.var(returns - batch.values, dim=(0, 2), correction=0)
-            / (torch.var(returns, dim=(0, 2), correction=0) + 1e-8))
+            torch.var(learner.per_member(returns - batch.values), -1,
+                      correction=0)
+            / (torch.var(learner.per_member(returns), -1, correction=0)
+               + 1e-8))
         state = state.replace(params=params, opt_state=opt_state)
         metrics = {**env_metrics, **opt_metrics,
                    "explained_variance": explained_var}
@@ -203,7 +234,9 @@ def _population_iteration(cfg: PPOConfig, env_params: EnvParams,
 
 def make_population_step(cfg: PPOConfig, env_params: EnvParams, device=None,
                          on_phase: Optional[Callable[[str], None]] = None,
-                         dtype=torch.float32) -> Callable:
+                         dtype=torch.float32,
+                         mesh: Optional[Mesh] = None,
+                         pop: Optional[int] = None) -> Callable:
     """Returns step(state, seed=None, perms=None, draws=None) -> (state,
     metrics): one PPO iteration of every member (rollout, GAE, epochs of
     member-batched gradient steps with Adam, on the paths cfg chooses) of
@@ -213,33 +246,42 @@ def make_population_step(cfg: PPOConfig, env_params: EnvParams, device=None,
     each member's generator, and `draws` (of batch shape (P, B)) the
     unfused rollout's draws: the parity tests pass the draws the JAX step
     derives from its keys.  `on_phase(name)` is called as each phase ends
-    ("rollout", "gae", "update")."""
+    ("rollout", "gae", "update").  With a `mesh` on which the `pop`
+    members are `member_sharded`, the step trains this rank's members,
+    whose metrics it returns (P / W,)."""
     dev = resolve_device(device)
     learner.check_ported(cfg, dtype)
     learner._check_matmuls(cfg, dev)
-    return learner.eager_step(_population_iteration(cfg, env_params, dtype),
-                              cfg, dev, on_phase)
+    mesh = mesh if pop is not None and member_sharded(pop, mesh) else None
+    return learner.eager_step(
+        _population_iteration(cfg, env_params, dtype, mesh), cfg, dev,
+        on_phase, seed_generators(cfg, pop or 1, mesh))
 
 
 def make_population_loop(cfg: PPOConfig, env_params: EnvParams,
                          iters_per_call: int, device=None,
-                         dtype=torch.float32) -> Callable:
+                         dtype=torch.float32,
+                         mesh: Optional[Mesh] = None,
+                         pop: Optional[int] = None) -> Callable:
     """Returns loop(state) -> (state, metrics): `iters_per_call`
     iterations of every member a call, metrics (K, P) (JAX
-    `population.make_population_loop`).  On the CPU, K calls of
-    `make_population_step`'s step; on the card, replays of one captured
-    iteration (`learner.ReplayedLoop`): the seed still comes from member
-    0's generator and each member's permutations from its own."""
+    `population.make_population_loop`).  On the CPU, and under gloo, K
+    calls of `make_population_step`'s step; on the card, replays of one
+    captured iteration (`learner.ReplayedLoop`): the seed still comes
+    from member 0's generator (or each rank's first member's) and each
+    member's permutations from its own."""
     dev = resolve_device(device)
     learner.check_ported(cfg, dtype)
     learner._check_matmuls(cfg, dev)
-    if dev.type != "cuda":
+    if not learner.replays(dev, mesh):
         return learner.stacked_loop(
-            make_population_step(cfg, env_params, dev, dtype=dtype),
+            make_population_step(cfg, env_params, dev, dtype=dtype,
+                                 mesh=mesh, pop=pop),
             iters_per_call)
+    mesh = mesh if pop is not None and member_sharded(pop, mesh) else None
     return learner.ReplayedLoop(
-        _population_iteration(cfg, env_params, dtype), cfg,
-        iters_per_call)
+        _population_iteration(cfg, env_params, dtype, mesh), cfg,
+        iters_per_call, seed_generators(cfg, pop or 1, mesh))
 
 
 def make_population_eval(cfg: PPOConfig, env_params: EnvParams,

@@ -72,13 +72,29 @@ state, env state, generators and the `--exact-eval` Mersenne stream);
 checkpoint.  A resume that changes `--total-steps` names the run with
 `--run-name`, since the default name holds the budget.
 
-`summary.json` holds JAX's keys less `compile_cache` and `n_devices`, with
-`device` added: among them `iters_per_call` and the phase timers
+`summary.json` holds JAX's keys less `compile_cache`, with `device` and
+`launches` (each kernel's launches in this process) and `process_group`
+(the backend of a launch's group, else null) added: among them `n_devices`
+(the ranks), `iters_per_call` and the phase timers
 (`phases`, `phases_other_s`: `dispatch`, the call until its metrics are
 queued; `train_first_call` and `train_step`, the read-back that waits for
 them; `log`, `checkpoint`, `best_ckpt`, `final_reval` as JAX names them,
 and `eval`, the port's synchronous eval, where JAX splits `eval_enqueue`
 and `eval_resolve`).
+
+Several cards train one run as JAX trains on several devices
+(`parallel/mesh.py`), one process a card:
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m acas2d_tpu_torch.train --preset tpu --fused-rollout --fused-update
+
+A solo run whose n_envs the ranks divide splits its envs over them and
+averages their gradients at every minibatch step; a population whose P
+they divide splits its members, with no collective in a step.  Otherwise
+every rank runs the whole step, and the driver says so.  Rank 0 alone
+writes the run dir, runs the evals and the population's selection, and
+sends their outcome to the others; checkpoints hold the whole state in the
+single process's layout, so a run resumes on another number of ranks.
 
 The defaults are JAX's, so that a JAX command line means the same run:
 the fused paths are off unless asked for (`--no-fused-rollout` and
@@ -105,13 +121,14 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from acas2d_tpu_torch import population_merge, resolve_device
+from acas2d_tpu_torch import population_merge
 from acas2d_tpu_torch.config import DEFAULT_PARAMS
+from acas2d_tpu_torch.parallel import mesh as mesh_lib
 from acas2d_tpu_torch.ppo import learner, population
 from acas2d_tpu_torch.ppo.config import PPOConfig, tpu_default
 from acas2d_tpu_torch.utils.checkpoint import CheckpointManager
 from acas2d_tpu_torch.utils import profiling
-from acas2d_tpu_torch.utils.logging import MetricsLogger
+from acas2d_tpu_torch.utils.logging import MetricsLogger, NullLogger
 from acas2d_tpu_torch.utils.params_io import load_flat_params
 
 
@@ -289,6 +306,12 @@ def _init_params(path: str, pop: int) -> torch.Tensor:
     return flat[torch.arange(pop) % stack_n]
 
 
+def init_params(path: str, pop: int, mesh: mesh_lib.Mesh) -> torch.Tensor:
+    """`_init_params` as rank 0 reads it, on every rank."""
+    return mesh_lib.broadcast_object(
+        _init_params(path, pop) if mesh.rank == 0 else None, mesh)
+
+
 def run_name_of(args, cfg: PPOConfig) -> str:
     """The run dir's name: --run-name, else JAX train.py's default."""
     pop = f"pop{args.population}_" if args.population else ""
@@ -357,8 +380,9 @@ def eval_generator(seed: int, gstep: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(key))
 
 
-def _emit(row: Dict, rows: List[Dict]) -> None:
-    print(json.dumps(row), flush=True)
+def _emit(row: Dict, rows: List[Dict], show: bool = True) -> None:
+    if show:
+        print(json.dumps(row), flush=True)
     rows.append(row)
 
 
@@ -366,49 +390,102 @@ class _Run:
     """What the solo and population loops share: the run dir, its
     checkpoints and loggers, resume, the iterations a call, the eval and
     checkpoint cadences, the loop, its phase timers and trace, and
-    summary.json."""
+    summary.json.
 
-    def __init__(self, args, cfg: PPOConfig, run_dir: str):
+    On a mesh (`parallel/mesh.py`), every rank runs the loop in lockstep
+    and rank 0 alone (`writer`) writes the run dir: its logs, checkpoints,
+    trace and summary.  `sharded` says whether the state the loop carries
+    is this rank's share (`learner.shard_state`, by env or with `members`
+    by member), which `whole` gathers for a checkpoint."""
+
+    def __init__(self, args, cfg: PPOConfig, run_dir: str,
+                 mesh: Optional[mesh_lib.Mesh] = None, sharded: bool = False,
+                 members: bool = False):
+        mesh = mesh if mesh is not None else mesh_lib.make_mesh(args.device)
         self.t_main = time.perf_counter()
         self.args, self.cfg, self.run_dir = args, cfg, run_dir
-        self.device = resolve_device(args.device)
+        self.mesh, self.sharded, self.members = mesh, sharded, members
+        self.writer = mesh.rank == 0
+        self.device = mesh.device
         self.dtype = dtype_of(args)
         self.iters_per_call = resolve_iters_per_call(
             args.iters_per_call, args.preset, self.device, cfg)
-        os.makedirs(run_dir, exist_ok=True)
-        self.ckpt = CheckpointManager(os.path.join(run_dir, "checkpoints"))
-        self.logger = MetricsLogger(run_dir, "train")
-        self.eval_logger = MetricsLogger(run_dir, "eval")
+        if self.writer:
+            os.makedirs(run_dir, exist_ok=True)
+            self.ckpt = CheckpointManager(os.path.join(run_dir,
+                                                       "checkpoints"))
+            self.logger = MetricsLogger(run_dir, "train")
+            self.eval_logger = MetricsLogger(run_dir, "eval")
+        else:
+            self.ckpt = None
+            self.logger = self.eval_logger = NullLogger()
+        if mesh.distributed and not sharded:
+            self.note(f"{'population' if members else 'n_envs'} "
+                      f"{args.population if members else cfg.n_envs} does "
+                      f"not split over {mesh.size} ranks: every rank runs "
+                      f"the whole step")
         self.timers = profiling.PhaseTimers()
+        self.launches0 = {k: f.launches
+                          for k, f in learner.KERNELS.items()}
         self.evals_done = 0
         self.first_call_s = None
         self.t_start = self.start_step = None
 
+    def note(self, msg: str) -> None:
+        """A line on stderr, from rank 0 alone."""
+        if self.writer:
+            print(msg, file=sys.stderr)
+
     def gstep(self, state) -> int:
         return state.iteration * self.cfg.batch_size
 
-    def resume(self, state):
-        """The latest checkpoint's state if --resume finds one, else
-        `state`; then the evals done before it."""
+    def whole(self, state):
+        """The whole state: the ranks' shares gathered, on every rank."""
+        if not self.sharded:
+            return state
+        return learner.gather_state(state, self.mesh, self.members)
+
+    def start(self, state):
+        """The whole state `state` (every rank builds it from the seed)
+        resumed from the latest checkpoint if --resume finds one (rank 0
+        reads it and sends it to every rank), its params checked to be the
+        same on every rank, and then this rank's share of it; the evals
+        done before it."""
         if self.args.resume:
-            try:
-                state = learner.state_from_dict(self.ckpt.restore(),
-                                                state)
-                print(f"resumed from step {self.gstep(state)}",
-                      file=sys.stderr)
-            except FileNotFoundError:
-                print("no checkpoint found; starting fresh", file=sys.stderr)
-        self.evals_done = count_prior_evals(self.run_dir, self.gstep(state),
-                                            self.cfg)
+            raw = None
+            if self.writer:
+                try:
+                    raw = self.ckpt.restore()
+                except FileNotFoundError:
+                    pass
+            raw = mesh_lib.broadcast_object(raw, self.mesh)
+            if raw is None:
+                self.note("no checkpoint found; starting fresh")
+            else:
+                state = learner.state_from_dict(raw, state)
+                self.note(f"resumed from step {self.gstep(state)}")
+        if self.mesh.distributed:
+            ref = mesh_lib.broadcast(state.params.clone(), self.mesh)
+            if not torch.equal(ref, state.params):
+                raise RuntimeError(f"rank {self.mesh.rank}'s params differ "
+                                   f"from rank 0's")
+        if self.writer:
+            self.evals_done = count_prior_evals(self.run_dir,
+                                                self.gstep(state), self.cfg)
+        if self.sharded:
+            state = learner.shard_state(state, self.mesh, self.members)
         return state
 
     def save(self, state, flush=None) -> None:
         with self.timers("checkpoint"):
-            self.ckpt.save(self.gstep(state), learner.state_to_dict(state))
-            record_eval_count(self.run_dir, self.gstep(state),
-                              self.evals_done)
-            if flush is not None:
-                flush()
+            whole = self.whole(state)
+            if self.writer:
+                self.ckpt.save(self.gstep(state),
+                               learner.state_to_dict(whole))
+                record_eval_count(self.run_dir, self.gstep(state),
+                                  self.evals_done)
+                if flush is not None:
+                    flush()
 
     def loop(self, state, call, make_rows, steps_per_iter, evaluate,
              flush=None):
@@ -436,7 +513,7 @@ class _Run:
         calls = 0
         try:
             while self.gstep(state) < cfg.total_timesteps:
-                if self.args.profile and calls == 1:
+                if self.args.profile and calls == 1 and self.writer:
                     tracer = profiling.Trace(
                         os.path.join(self.run_dir, "trace"),
                         self.device.type == "cuda")
@@ -485,26 +562,27 @@ class _Run:
                         next_eval += cfg.eval_every_steps
                 with timers("log"):
                     for row in call_rows:
-                        _emit(row, rows)
+                        _emit(row, rows, self.writer)
                 if gstep >= next_ckpt:
                     self.save(state, flush)
                     while next_ckpt <= gstep:
                         next_ckpt += every
         except KeyboardInterrupt:
-            print("interrupted; saving checkpoint", file=sys.stderr)
+            self.note("interrupted; saving checkpoint")
         if tracer is not None:
             tracer.stop()
         self.save(state, flush)
-        if self.args.profile:
+        if self.args.profile and self.writer:
             mem = profiling.device_memory_stats(self.device)
             if mem:
                 print(f"device memory: {mem}", file=sys.stderr)
         return state, rows
 
     def summary(self, state, selection: Optional[Dict] = None) -> Dict:
-        """summary.json: JAX's keys, less that of its compile cache, with
-        `device` for `n_devices`; a population's adds its aggregate rate
-        and `selection`."""
+        """summary.json (rank 0's): JAX's keys, less that of its compile
+        cache, with `device` and the kernels' `launches` in this process
+        (of rank 0); a population's adds its aggregate rate and
+        `selection`."""
         cfg = self.cfg
         total = time.perf_counter() - self.t_start
         phases = self.timers.report()
@@ -518,6 +596,8 @@ class _Run:
             "argv": self.args.argv,
             "backend": "torch",
             "device": str(self.device),
+            "n_devices": self.mesh.size,
+            "process_group": mesh_lib.backend_of(self.mesh),
             "config": {**{k: getattr(cfg, k) for k in (
                 "n_envs", "n_steps", "total_timesteps", "minibatch_size",
                 "n_epochs", "learning_rate", "anneal_lr", "seed",
@@ -540,14 +620,17 @@ class _Run:
             "phases": phases,
             "phases_other_s": round(total - sum(
                 v for k, v in phases.items() if k.endswith("_s")), 3),
+            "launches": {k: f.launches - self.launches0[k]
+                         for k, f in learner.KERNELS.items()},
         }
         if self.args.population:
             summary["aggregate_steps_per_s"] = round(
                 self.args.population * steps_done / max(total, 1e-9), 1)
             summary["population_selection"] = selection
-        with open(os.path.join(self.run_dir, "summary.json"), "w") as f:
-            json.dump(summary, f, indent=1)
-        print(f"phase timers: {phases}", file=sys.stderr)
+        if self.writer:
+            with open(os.path.join(self.run_dir, "summary.json"), "w") as f:
+                json.dump(summary, f, indent=1)
+        self.note(f"phase timers: {phases}")
         self.logger.close()
         self.eval_logger.close()
         return summary
@@ -555,24 +638,29 @@ class _Run:
 
 def run(args) -> List[Dict[str, float]]:
     """Train; returns the per-iteration metric rows it printed (of every
-    stage, polish stages included)."""
+    stage, polish stages included).  Under a launcher every rank runs it
+    (`parallel.mesh.multihost_init`)."""
     if args.population:
         return run_population(args)
     cfg = build_config(args)
     learner.check_ported(cfg, dtype_of(args))
     env_params = DEFAULT_PARAMS
-    r = _Run(args, cfg, os.path.join(args.out_dir, run_name_of(args, cfg)))
+    mesh = mesh_lib.multihost_init(args.device)
+    r = _Run(args, cfg, os.path.join(args.out_dir, run_name_of(args, cfg)),
+             mesh, learner.env_sharded(cfg, mesh), members=False)
     device, K, dtype = r.device, r.iters_per_call, r.dtype
-    call = (learner.make_train_loop(cfg, env_params, K, device, dtype)
+    call = (learner.make_train_loop(cfg, env_params, K, device, dtype, mesh)
             if K > 1 else one_iteration_a_call(
                 learner.make_train_step(cfg, env_params, device,
-                                        dtype=dtype)))
+                                        dtype=dtype, mesh=mesh)))
     state = learner.init_train_state(cfg, env_params, device, dtype=dtype)
     if args.init_params_npz:
-        state = state.replace(params=_init_params(
-            args.init_params_npz, 0).to(device, dtype))
-    state = r.resume(state)
-    if args.exact_eval:
+        state = state.replace(params=init_params(
+            args.init_params_npz, 0, mesh).to(device, dtype))
+    state = r.start(state)
+    if not r.writer:
+        eval_fn = None
+    elif args.exact_eval:
         eval_fn = learner.make_exact_eval_fn(
             cfg, env_params, dtype, device=device,
             skip_episodes=r.evals_done * cfg.eval_episodes)
@@ -586,12 +674,22 @@ def run(args) -> List[Dict[str, float]]:
         return [dict(zip(keys, col)) for col in zip(*values)]
 
     def evaluate(state, gstep):
-        with r.timers("eval"):
-            em = {k: float(v) for k, v in eval_fn(
-                state.params, eval_generator(cfg.seed, gstep)).items()}
+        # rank 0 evaluates; every rank takes its values and its verdict,
+        # so that all of them gather the state for a new best
+        em = better = None
+        if r.writer:
+            with r.timers("eval"):
+                em = {k: float(v) for k, v in eval_fn(
+                    state.params, eval_generator(cfg.seed, gstep)).items()}
+            better = r.ckpt.is_better(em)
+        em, better = mesh_lib.broadcast_object((em, better), mesh)
         # best-model tracking rides the eval cadence (EvalCallback)
-        with r.timers("best_ckpt"):
-            r.ckpt.update_best(gstep, learner.state_to_dict(state), em)
+        if better:
+            with r.timers("best_ckpt"):
+                whole = r.whole(state)
+                if r.writer:
+                    r.ckpt.update_best(gstep, learner.state_to_dict(whole),
+                                       em)
         return em, dict(em)
 
     state, rows = r.loop(state, call, make_rows, cfg.batch_size, evaluate)
@@ -603,7 +701,10 @@ def run_population(args) -> List[Dict]:
     """Population training (JAX train.py's --population path): train, eval
     and archive, re-eval every snapshot, select, then chain the polish
     stages.  Each printed row holds the member means, the best member's
-    return and, on eval rows, every member's eval return."""
+    return and, on eval rows, every member's eval return.  On a mesh whose
+    size divides P each rank trains its members; the evals, the snapshot
+    archive, the re-eval and the selection are rank 0's, on every
+    member's params gathered to it."""
     if args.exact_eval:
         raise ValueError("--exact-eval is a single-policy protocol; evaluate "
                          "the selected member afterwards with "
@@ -614,35 +715,48 @@ def run_population(args) -> List[Dict]:
     pop = args.population
     run_name = run_name_of(args, cfg)
     run_dir = os.path.join(args.out_dir, run_name)
-    r = _Run(args, cfg, run_dir)
+    mesh = mesh_lib.multihost_init(args.device)
+    r = _Run(args, cfg, run_dir, mesh, population.member_sharded(pop, mesh),
+             members=True)
     device, K, dtype = r.device, r.iters_per_call, r.dtype
     call = (population.make_population_loop(cfg, env_params, K, device,
-                                            dtype)
+                                            dtype, mesh, pop)
             if K > 1 else one_iteration_a_call(
                 population.make_population_step(cfg, env_params, device,
-                                                dtype=dtype)))
+                                                dtype=dtype, mesh=mesh,
+                                                pop=pop)))
     state = population.init_population(cfg, env_params, pop, device, dtype)
     if args.init_params_npz:
-        state = state.replace(params=_init_params(
-            args.init_params_npz, pop).to(device, dtype))
-    state = r.resume(state)
-    eval_fn = population.make_population_eval(cfg, env_params, dtype,
-                                              device=device)
-    tracker = population.PopulationTracker(run_dir, pop, cfg.seed)
+        state = state.replace(params=init_params(
+            args.init_params_npz, pop, mesh).to(device, dtype))
+    state = r.start(state)
+    eval_fn = tracker = None
+    if r.writer:
+        eval_fn = population.make_population_eval(cfg, env_params, dtype,
+                                                  device=device)
+        tracker = population.PopulationTracker(run_dir, pop, cfg.seed)
+
+    def members(x: torch.Tensor) -> torch.Tensor:
+        """Every member's rows of x (members on its leading axis)."""
+        return mesh_lib.all_gather_rows(x, mesh) if r.sharded else x
 
     def make_rows(metrics):
         keys = list(metrics)
-        values = torch.stack([metrics[k].to(torch.float64)
-                              for k in keys]).cpu().numpy()    # one sync
+        values = torch.stack([metrics[k].to(torch.float64) for k in keys])
+        values = members(values.permute(2, 0, 1)).permute(1, 2, 0)
+        values = values.cpu().numpy()                      # one sync
         returns = values[keys.index("ep_return_mean")]
         return [{**{k: float(v[i].mean()) for k, v in zip(keys, values)},
                  "ep_return_max": float(returns[i].max())}
                 for i in range(values.shape[1])]
 
     def evaluate(state, gstep):
+        params = members(state.params)
+        if not r.writer:
+            return {}, {}
         with r.timers("eval"):
             em = {k: v.to(torch.float64).cpu().numpy()
-                  for k, v in eval_fn(state.params, eval_generator(
+                  for k, v in eval_fn(params, eval_generator(
                       cfg.seed, gstep)).items()}
         vals = em["eval_return_mean"]
         shown = {k: float(v.mean()) for k, v in em.items()}
@@ -650,7 +764,7 @@ def run_population(args) -> List[Dict]:
                      eval_best_member=int(vals.argmax()),
                      eval_return_members=[round(float(v), 2) for v in vals])
         with r.timers("best_ckpt"):
-            n_up = tracker.update(gstep, vals, state.params.cpu().numpy())
+            n_up = tracker.update(gstep, vals, params.cpu().numpy())
         if n_up:
             print(f"population: {n_up} member(s) improved; best="
                   f"{tracker.best_vals.max():.2f} (member "
@@ -661,49 +775,64 @@ def run_population(args) -> List[Dict]:
 
     state, rows = r.loop(state, call, make_rows,
                          population.population_throughput_steps(cfg, pop),
-                         evaluate, tracker.flush)
+                         evaluate, tracker.flush if r.writer else None)
 
+    selection = None
+    if r.writer:
+        selection = select(args, cfg, env_params, r, tracker)
+    r.summary(state, selection)
+
+    if args.polish_steps > 0:
+        if not mesh_lib.broadcast_object(
+                r.writer and tracker.snap_params is not None, mesh):
+            # no eval fired before total_timesteps: nothing to polish from
+            r.note("polish skipped: no selection artifact")
+        else:
+            rows += run(parse_args(polish_argv(args, run_dir, run_name)))
+            if r.writer:
+                # the pipeline-level record (the committed-artifact schema)
+                population_merge.merge(
+                    run_dir, os.path.join(args.out_dir,
+                                          f"{run_name}_polish"),
+                    [f"stage1_population{pop}"
+                     + ("_rollpacked" if cfg.fused_update_packed
+                        and cfg.fused_rollout else ""),
+                     f"reval{args.reval_episodes}_risk_adjusted",
+                     f"polish_population{polish_population(args)}"])
+    return rows
+
+
+def select(args, cfg: PPOConfig, env_params, r: _Run,
+           tracker: population.PopulationTracker) -> Dict:
+    """The end of a population stage: one large fresh re-eval of every
+    archived snapshot, pop x k at once (unless --reval-episodes 0), then
+    the tracker's selection; returns its summary."""
     reval_vals = reval_stds = None
     if args.reval_episodes > 0 and tracker.snap_params is not None:
-        # one large fresh eval of every archived snapshot, pop x k at once
         reval_fn = population.make_population_eval(
             dataclasses.replace(cfg, eval_episodes=args.reval_episodes),
-            env_params, dtype, device=device)
+            env_params, r.dtype, device=r.device)
         flat, _ = tracker.snapshots_flat()
         t0 = time.perf_counter()
         with r.timers("final_reval"):
-            rm = reval_fn(torch.as_tensor(flat, device=device, dtype=dtype),
+            rm = reval_fn(torch.as_tensor(flat, device=r.device,
+                                          dtype=r.dtype),
                           torch.Generator().manual_seed(cfg.seed + 99))
             reval_vals = rm["eval_return_mean"].cpu().numpy()
             reval_stds = rm["eval_return_std"].cpu().numpy()
         print(f"population: re-eval of {flat.shape[0]} snapshots "
-              f"({pop} members x {tracker.k}), {args.reval_episodes} "
-              f"episodes each: {time.perf_counter() - t0:.3f} s",
-              file=sys.stderr)
-    selection = tracker.finalize(reval_vals, reval_episodes=args.reval_episodes,
+              f"({args.population} members x {tracker.k}), "
+              f"{args.reval_episodes} episodes each: "
+              f"{time.perf_counter() - t0:.3f} s", file=sys.stderr)
+    selection = tracker.finalize(reval_vals,
+                                 reval_episodes=args.reval_episodes,
                                  reval_stds=reval_stds)
     sel_val = selection.get("selected_reval",
                             selection["selected_training_eval"])
     print(f"population: selected member {selection['selected_member']} "
           f"(seed {selection['selected_seed']}, by "
           f"{selection['selected_by']}) eval {sel_val:.2f}", file=sys.stderr)
-    r.summary(state, selection)
-
-    if args.polish_steps > 0:
-        if tracker.snap_params is None:
-            # no eval fired before total_timesteps: nothing to polish from
-            print("polish skipped: no selection artifact", file=sys.stderr)
-        else:
-            rows += run(parse_args(polish_argv(args, run_dir, run_name)))
-            # the pipeline-level record (the committed-artifact schema)
-            population_merge.merge(
-                run_dir, os.path.join(args.out_dir, f"{run_name}_polish"),
-                [f"stage1_population{pop}"
-                 + ("_rollpacked" if cfg.fused_update_packed
-                    and cfg.fused_rollout else ""),
-                 f"reval{args.reval_episodes}_risk_adjusted",
-                 f"polish_population{polish_population(args)}"])
-    return rows
+    return selection
 
 
 def polish_population(args) -> int:
@@ -759,7 +888,11 @@ def polish_argv(args, run_dir: str, run_name: str) -> List[str]:
 
 
 def main(argv=None) -> int:
-    run(parse_args(argv))
+    args = parse_args(argv)
+    run(args)
+    # the ranks of a launch end together: none leaves the group while
+    # rank 0 still selects or writes
+    mesh_lib.sync(mesh_lib.make_mesh(args.device))
     return 0
 
 

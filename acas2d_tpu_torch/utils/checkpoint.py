@@ -85,17 +85,22 @@ class CheckpointManager:
         for old in self.steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
 
-    def update_best(self, step: int, state: Dict[str, Any],
-                    metrics: dict) -> bool:
-        """Overwrite best/ with checkpoint dict `state` iff
-        metrics[BEST_KEY] is finite and strictly beats the persisted best
-        value.  Returns True on a new best."""
+    def is_better(self, metrics: dict) -> bool:
+        """Whether metrics[BEST_KEY] is finite and strictly beats the
+        persisted best value."""
         if BEST_KEY not in metrics:
             return False
         v = float(metrics[BEST_KEY])
-        if not math.isfinite(v) or (self._best_value is not None
-                                    and v <= self._best_value):
+        return math.isfinite(v) and (self._best_value is None
+                                     or v > self._best_value)
+
+    def update_best(self, step: int, state: Dict[str, Any],
+                    metrics: dict) -> bool:
+        """Overwrite best/ with checkpoint dict `state` iff `is_better`.
+        Returns True on a new best."""
+        if not self.is_better(metrics):
             return False
+        v = float(metrics[BEST_KEY])
         os.makedirs(self._best_dir, exist_ok=True)
         _atomic_save(state, os.path.join(self._best_dir, STATE_FILE))
         tmp = self._best_meta + ".tmp"

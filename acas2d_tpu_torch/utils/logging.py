@@ -95,3 +95,14 @@ class MetricsLogger:
     def close(self):
         if self._csv_file:
             self._csv_file.close()
+
+
+class NullLogger:
+    """A logger that writes nothing: a rank of a mesh other than rank 0,
+    which alone writes the run's files."""
+
+    def log(self, metrics: Dict, step: Optional[int] = None):
+        pass
+
+    def close(self):
+        pass

@@ -123,7 +123,27 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      with their launch counters; one eager
      iteration of the reference configuration of record (1 env x 2048
      steps, minibatch 64), cut into its phases; and one unfused `tpu`
-     iteration in float64 on the card against the CPU.
+     iteration in float64 on the card against the CPU;
+ 17. the multi-process paths (`acas2d_tpu_torch/parallel/`) on the card:
+     (a) `train` with SOLO_ARGV, 8 iterations at 4 a call, under
+     `python -m torch.distributed.run --nproc-per-node 1` (a group of one
+     over NCCL, whose collectives the replayed graph holds) and alone, one
+     intra-op thread each: final checkpoints and every row's metrics bit
+     for bit, 8 rollout and 40 gradient launches an iteration in each
+     (their summaries); (b) two ranks sharing cuda:0 over gloo
+     (`parallel/dryrun.py` through `parallel/launch.py`): the xla,
+     fused_rollout and fused_update variants of JAX's dryrun_multichip at
+     the solo `tpu` shape (1024 envs a rank), 2 iterations each, and the
+     pipeline's fused P = 32 (16 members a rank), one iteration; the
+     unfused variants against one process within SHARDED_TOL, each rank's
+     first fused rollout chunk bit for bit against one launch of the
+     kernel on its rows at seed + 7919 r, every rank's launches; (c)
+     `bench --scaling` under a launch of one.
+`python3 chip_smoke.py --cards W` (W >= 2 cards of one host) builds the
+kernels and runs phase 17 across the cards instead: the dryrun on W ranks
+over NCCL (2048 / W envs and 32 / W members a rank) held as in (b); the
+solo `tpu` preset and the pipeline's P = 32 trained 16 iterations on W
+cards and on one, ms an iteration of each; and `bench --scaling` up to W.
 Every training run writes its run directory into a temporary directory.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -1268,6 +1288,325 @@ def phase_float64():
     return err
 
 
+# ----------------------------------------------------------------- phase 17
+
+W1_ITERS, W1_K = 8, 4
+# the stated float32 tolerance of two ranks against one process on the
+# unfused paths: JAX's own for its sharded step (tests/test_sharding.py:
+# 81-87) and, with the fused update, for its sharded fused update (:115-121)
+SHARDED_TOL = {"xla": (1e-5, 1e-4), "fused_update": (2e-5, 2e-3)}
+DRYRUN_TIMEOUT_S = 300
+
+
+def run_train(argv, W):
+    """`python -m acas2d_tpu_torch.train argv` (with `--out-dir` and
+    `--run-name`) under `torch.distributed.run --nproc-per-node W`, or
+    without the launcher for W = 0, one intra-op thread a process (as the
+    launcher's): its rows, its summary and the median ms an iteration of
+    its calls after the first (a row's `seconds` is its call's over K)."""
+    pre = (["-m", "torch.distributed.run", "--nproc-per-node", str(W)]
+           if W else [])
+    res = subprocess.run(
+        [sys.executable] + pre + ["-m", "acas2d_tpu_torch.train"] + argv,
+        capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    check(res.returncode == 0, f"train on {W} ranks exited "
+          f"{res.returncode}: {res.stderr[-3000:]}")
+    run_dir = os.path.join(argv[argv.index("--out-dir") + 1],
+                           argv[argv.index("--run-name") + 1])
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = json.load(f)
+    rows = [json.loads(x) for x in res.stdout.splitlines()
+            if x.startswith("{")]
+    K = summary["iters_per_call"]
+    return rows, summary, float(np.median([1e3 * r["seconds"]
+                                           for r in rows[K:]]))
+
+
+def checkpoints_differ(a, b):
+    """The keys of two checkpoint dicts that differ."""
+    out = []
+    for k in ("params", "obs"):
+        if not torch.equal(a[k], b[k]):
+            out.append(k)
+    for k in ("mu", "nu", "count"):
+        x, y = a["adam"][k], b["adam"][k]
+        if not (torch.equal(x, y) if torch.is_tensor(x) else x == y):
+            out.append(f"adam.{k}")
+    out += [f"env.{k}" for k, v in a["env_state"].items()
+            if not torch.equal(v, b["env_state"][k])]
+    if any(not torch.equal(g, h) for g, h in zip(a["generators"],
+                                                 b["generators"])):
+        out.append("generators")
+    if a["iteration"] != b["iteration"]:
+        out.append("iteration")
+    return out
+
+
+def phase_world_of_one():
+    """(a) `train` with SOLO_ARGV, W1_ITERS iterations at W1_K a call, under
+    `torch.distributed.run --nproc-per-node 1` (a group of one over NCCL:
+    the batch gathered and every gradient all-reduced inside the replayed
+    graph) and without the launcher: the final checkpoints and every row's
+    metrics bit for bit, the launches of each run (its summary) 8 rollout
+    and 40 gradient launches an iteration."""
+    batch = SOLO_B * 128
+    runs = {}
+    with tempfile.TemporaryDirectory() as out:
+        for launcher in (True, False):
+            name = "nccl" if launcher else "plain"
+            argv = SOLO_ARGV + [
+                "--iters-per-call", str(W1_K), "--total-steps",
+                str(W1_ITERS * batch), "--checkpoint-every",
+                str(W1_ITERS * batch), "--out-dir", out, "--run-name", name]
+            rows, summary, ms = run_train(argv, 1 if launcher else 0)
+            ckpt = torch.load(os.path.join(out, name, "checkpoints",
+                                           str(W1_ITERS * batch), "state.pt"),
+                              weights_only=True)
+            runs[name] = (rows, summary, ckpt, ms)
+            check(len(rows) == W1_ITERS, f"{name}: {len(rows)} rows")
+            check(summary["launches"] == {"policy_rollout": 8 * W1_ITERS,
+                                          "ppo_grads": 40 * W1_ITERS},
+                  f"{name}: launches {summary['launches']}")
+            check(summary["iters_per_call"] == W1_K)
+        check(runs["nccl"][1]["process_group"] == "nccl"
+              and runs["nccl"][1]["n_devices"] == 1
+              and runs["plain"][1]["process_group"] is None)
+        differ = checkpoints_differ(runs["nccl"][2], runs["plain"][2])
+        timing = ("seconds", "steps_per_s", "eval_seconds")
+        differ += [f"row {i} {k}" for i, (x, y) in enumerate(
+            zip(runs["nccl"][0], runs["plain"][0])) for k in x
+            if k not in timing and x[k] != y.get(k)]
+        check(not differ, f"a world of 1 over NCCL differs from the plain "
+              f"driver in {differ}")
+    print(f"[world of 1] torch.distributed.run --nproc-per-node 1 (NCCL) "
+          f"and the plain driver, {W1_ITERS} iterations at {W1_K} a call "
+          f"(replayed graphs): final checkpoints and "
+          f"{len(runs['nccl'][0])} rows of metrics bit for bit; launches "
+          f"{runs['nccl'][1]['launches']} each; ms an iteration of the "
+          f"calls after the first {runs['nccl'][3]:.2f} / "
+          f"{runs['plain'][3]:.2f}")
+
+
+DRYRUN_VARIANTS = (("xla", 2), ("fused_rollout", 2), ("fused_update", 2),
+                   ("population_fused", 1))
+
+
+def dryrun_argv(out, W):
+    """`parallel/dryrun.py`'s arguments: the solo `tpu` preset's 2048 envs
+    split over W ranks (SOLO_B / W a rank), 2 iterations; the pipeline's
+    P = 32 members (P / W a rank), one iteration."""
+    return ["-m", "acas2d_tpu_torch.parallel.dryrun", "--out", out,
+            "--variants", ",".join(v for v, _ in DRYRUN_VARIANTS),
+            "--envs-per-rank", str(SOLO_B // W), "--minibatch", str(SOLO_N),
+            "--chunk", str(K), "--pop", str(POP), "--pop-envs", str(POP_B),
+            "--pop-minibatch", str(POP_N), "--iters", "2", "--pop-iters",
+            "1"]
+
+
+def dryrun_cfg(variant, W):
+    from acas2d_tpu_torch.parallel import dryrun
+    return dryrun.variant_config(variant, W, SOLO_B // W, 128, SOLO_N, 10,
+                                 K, POP, POP_B, POP_N)
+
+
+def dryrun_chunk_check(variant, out, W):
+    """Each rank's first rollout chunk of `variant` against one launch of
+    the kernel on that rank's rows at the seed its first generator gives
+    + 7919 rank, bit for bit."""
+    from acas2d_tpu_torch.parallel import dryrun, mesh as mesh_lib
+    from acas2d_tpu_torch.ppo import learner
+    cfg, P = dryrun_cfg(variant, W)
+    state = dryrun.init_state(cfg, P, "cuda")
+    gens = []
+    for g in state.generators:
+        gens.append(torch.Generator())
+        gens[-1].set_state(g.get_state())
+    probe = (state.replace(generators=gens) if P
+             else state.replace(generator=gens[0]))
+    seeds = learner.iteration_inputs(cfg, probe, 1, "cpu", seed_gens=(
+        tuple(range(0, P, P // W)) if P else (0,)))[0][0]
+    n = (P or SOLO_B) // W
+    for r in range(W):
+        seed = int(seeds[r if P else 0]) + 7919 * r
+        seed = ((seed + 2 ** 31) % 2 ** 32) - 2 ** 31
+        got = torch.load(os.path.join(out, f"{variant}_chunk{r}.pt"))
+        check(got["seed"] == seed, f"{variant} rank {r}: seed {got['seed']}"
+              f" vs {seed}")
+        rows = slice(r * n, (r + 1) * n)
+
+        def mine(x):
+            """Rank r's rows, with a leading member axis."""
+            return x[rows] if P else x[rows][None]
+        es = mesh_lib.map_tensors(state.env_state, mine)
+        flat = dict(px=es.px, py=es.py, psi=es.ppsi, tx=es.tx[..., 0],
+                    ty=es.ty[..., 0], tv=es.tv[..., 0], tpsi=es.tpsi[..., 0],
+                    steps=es.steps, total_reward=es.total_reward)
+        _, buf = policy_rollout.fused_policy_rollout_members(
+            flat, mine(state.obs), state.params[rows] if P
+            else state.params[None], seed, 0, K, DEFAULT_PARAMS)
+        want = {"obs": buf["obs"], "actions": buf["actions"][..., None],
+                "log_probs": buf["log_probs"], "values": buf["values"],
+                "rewards": buf["rewards"], "dones": buf["dones"] > 0}
+        differ = [k for k, v in want.items()
+                  if not torch.equal(got[k].cuda().reshape(v.shape), v)]
+        check(not differ, f"{variant} rank {r}: its first chunk differs "
+              f"from the kernel at seed + 7919 r in {differ}")
+
+
+def check_dryrun(out, W, tag):
+    """The dryrun's variants of W ranks (`dryrun_argv`) against one
+    process: the unfused ones within SHARDED_TOL, each rank's first fused
+    rollout chunk bit for bit against the kernel at seed + 7919 r, every
+    rank's launches (8 rollout and 40 gradient launches an iteration on
+    the fused paths)."""
+    from acas2d_tpu_torch.parallel import dryrun
+    for variant, iters in DRYRUN_VARIANTS:
+        got = torch.load(os.path.join(out, f"{variant}.pt"),
+                         weights_only=False)
+        check(got["sharded"] and got["world"] == W)
+        fr, fu, members = dryrun.VARIANTS[variant]
+        want = torch.tensor([[8 * iters * fr, 40 * iters * fu]] * W)
+        check(torch.equal(got["launches"], want),
+              f"{variant}: launches by rank {got['launches'].tolist()}")
+        check_finite([{k: v.cpu().numpy() for k, v in m.items()}
+                      for m in got["metrics"]])
+        print(f"[{tag}] {variant}: launches by rank (rollout, gradient) "
+              f"{got['launches'].tolist()}")
+        if variant in SHARDED_TOL:
+            atol, rtol = SHARDED_TOL[variant]
+            cfg, P = dryrun_cfg(variant, W)
+            state = dryrun.init_state(cfg, P, "cuda")
+            step = dryrun.make_step(cfg, P, "cuda")
+            for _ in range(iters):
+                state, m = step(state)
+            two, errs = got["state"], {}
+            for name, x, y in (("params", two["params"], state.params),
+                               ("adam.mu", two["adam"]["mu"],
+                                state.opt_state.mu),
+                               ("adam.nu", two["adam"]["nu"],
+                                state.opt_state.nu)):
+                errs[name] = float((x.cuda() - y).abs().max())
+                check(torch.allclose(x.cuda(), y, atol=atol, rtol=rtol),
+                      f"{variant}: {name} of {W} ranks vs one process: "
+                      f"max err {errs[name]:.3g}")
+            for k, v in m.items():
+                check(math.isclose(float(got["metrics"][-1][k]), float(v),
+                                   rel_tol=max(rtol, 1e-3),
+                                   abs_tol=10 * atol),
+                      f"{variant}: metric {k} "
+                      f"{float(got['metrics'][-1][k])} vs {float(v)}")
+            print(f"[{tag}] {variant}: {W} ranks against one process "
+                  f"after {iters} iterations, max abs err {errs} "
+                  f"(tolerance atol {atol}, rtol {rtol})")
+        else:
+            dryrun_chunk_check(variant, out, W)
+            print(f"[{tag}] {variant}: each rank's first chunk equals one "
+                  f"launch of the kernel on its rows at seed + 7919 r, bit "
+                  f"for bit")
+
+
+def phase_two_ranks_one_card():
+    """(b) `parallel/dryrun.py` on two ranks sharing cuda:0 over gloo (NCCL
+    refuses two ranks on one device): the xla, fused_rollout and
+    fused_update variants of JAX's dryrun_multichip at the solo `tpu`
+    shape (1024 envs a rank), 2 eager iterations each, and the pipeline's
+    fused population, P = 32 (16 a rank), one iteration, held by
+    `check_dryrun`."""
+    from acas2d_tpu_torch.parallel import launch
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        launch.check_ranks(launch.run_ranks(dryrun_argv(out, 2) + [
+            "--device", "cuda:0", "--backend", "gloo"], 2, DRYRUN_TIMEOUT_S))
+        wall = time.perf_counter() - t0
+        check_dryrun(out, 2, "two ranks")
+    print(f"[two ranks] wall of the two-rank run {wall:.1f} s")
+
+
+def run_scaling(W, envs_per_device=4096):
+    """`bench --scaling` under `torch.distributed.run --nproc-per-node W`:
+    its points n = 1, 2, 4, ..., W and the summary."""
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         str(W), "-m", "acas2d_tpu_torch.bench", "--scaling",
+         "--envs-per-device", str(envs_per_device), "--bench-steps", "64"],
+        capture_output=True, text=True, timeout=900)
+    check(out.returncode == 0, f"bench --scaling exited {out.returncode}: "
+          f"{out.stderr[-3000:]}")
+    lines = [json.loads(x) for x in out.stdout.splitlines()
+             if x.startswith("{")]
+    points, summary = lines[:-1], lines[-1]
+    check(points and points[-1]["n_devices"] == W
+          and all(p["rollout_steps_per_s"] > 0 and p["train_steps_per_s"] > 0
+                  for p in points)
+          and summary["target"] == 0.8, f"bench --scaling printed {lines}")
+    for x in lines:
+        print(f"[scaling] {json.dumps(x)}")
+    return lines
+
+
+def phase_scaling():
+    """(c) `bench --scaling` at W = 1 (`run_scaling`)."""
+    run_scaling(1)
+
+
+def phase_multi_process():
+    """Phase 17: the multi-process paths on the one card."""
+    phase_world_of_one()
+    phase_two_ranks_one_card()
+    phase_scaling()
+
+
+# ----------------------------------------------------- phase 17, W cards
+
+CARDS_ITERS = 16
+
+
+def phase_across_cards(W):
+    """Phase 17 on W cards (`python3 chip_smoke.py --cards W`): the dryrun
+    on W ranks over NCCL (`check_dryrun`); the solo `tpu` preset
+    (SOLO_ARGV, 2048 envs split over the cards) and the pipeline's P = 32
+    (its members split) trained CARDS_ITERS iterations at JAX's default K
+    on W ranks and alone, ms an iteration each (strong scaling: the same
+    run on more cards), their launches; and `bench --scaling` up to W."""
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc-per-node", str(W)] + dryrun_argv(out, W),
+            capture_output=True, text=True,
+            timeout=DRYRUN_TIMEOUT_S)
+        check(res.returncode == 0, f"dryrun on {W} cards exited "
+              f"{res.returncode}: {res.stderr[-3000:]}")
+        check_dryrun(out, W, f"{W} cards")
+    print(f"[{W} cards] dryrun wall {time.perf_counter() - t0:.1f} s")
+    batch = SOLO_B * 128
+    cases = (("solo", SOLO_ARGV + ["--total-steps",
+                                   str(CARDS_ITERS * batch)]),
+             ("P = 32", POP_ARGV[:POP_ARGV.index("--total-steps")]
+              + ["--total-steps", str(CARDS_ITERS * POP_B * 128),
+                 "--eval-episodes", "32", "--reval-episodes", "64"]))
+    for name, argv in cases:
+        got = {}
+        for w in (W, 0):
+            with tempfile.TemporaryDirectory() as out:
+                rows, summary, ms = run_train(
+                    argv + ["--out-dir", out, "--run-name", "r"], w)
+            check(len(rows) == CARDS_ITERS, f"{name}: {len(rows)} rows")
+            check_finite(rows)
+            check(summary["launches"] == {
+                "policy_rollout": 8 * CARDS_ITERS,
+                "ppo_grads": 40 * CARDS_ITERS},
+                  f"{name} on {w or 1} cards: launches {summary['launches']}")
+            check(summary["n_devices"] == (w or 1))
+            got[w] = ms
+        print(f"[{W} cards] {name}: ms an iteration (calls after the "
+              f"first, K = {summary['iters_per_call']}) on {W} cards "
+              f"{got[W]:.2f}, on one {got[0]:.2f}: {got[0] / got[W]:.3f}x; "
+              f"launches a rank {8 * CARDS_ITERS} / {40 * CARDS_ITERS}")
+    run_scaling(W)
+
+
 # ------------------------------------------------------------------ phase 7
 
 def env_state(dev, B, seed=5):
@@ -1821,7 +2160,22 @@ def phase_timing(rows_in, runs):
     return rows
 
 
-def main() -> int:
+def print_device_lines(kernels=None) -> None:
+    """The card's name and power limit, the kernels' JSON line when given,
+    and the last line."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1831,6 +2185,13 @@ def main() -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     phase_build()
+    if argv[:1] == ["--cards"]:
+        cards = int(argv[1]) if len(argv) > 1 else torch.cuda.device_count()
+        check(2 <= cards <= torch.cuda.device_count(),
+              f"--cards {cards} on {torch.cuda.device_count()} cards")
+        phase_across_cards(cards)
+        print_device_lines()
+        return 0
     roll = {"solo": phase_rollout(dev, 1, SOLO_B),
             "members": phase_rollout(dev, POP, POP_B)}
     grads = {"solo": phase_grads(dev, 1, SOLO_N),
@@ -1858,6 +2219,7 @@ def main() -> int:
     phase_unfused_population()
     phase_reference()
     phase_float64()
+    phase_multi_process()
     cu, pt = "acas2d_tpu_torch/csrc/", "acas2d_tpu/ops/"
     rows = [
         ("policy_rollout", time_rollout,
@@ -1894,14 +2256,7 @@ def main() -> int:
         rows, {"solo": (solo_it_s * 1e3, solo_phases),
                "members": (pop_it_s * 1e3, pop_phases),
                "bf16 members": (sum(bf16_phases.values()), bf16_phases)})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print_device_lines(kernels)
     return 0
 
 

@@ -111,9 +111,18 @@ def test_multi_traffic_mode(capsys):
     assert out["relative_cost"] > 0
 
 
-def test_scaling_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A10"):
-        bench.run(bench.parse_args(["--scaling", "--device", "cpu"]))
+def test_scaling_mode_without_a_launcher(capsys):
+    """One process is a sweep of n = 1: a point with JAX's keys and the
+    summary line (tests/test_torch_sharded_driver.py sweeps two ranks)."""
+    assert bench.main(["--device", "cpu", "--scaling", "--envs-per-device",
+                       "8", "--bench-steps", "4", "--train-steps", "8"]) == 0
+    lines = [json.loads(x) for x in
+             capsys.readouterr().out.strip().splitlines()]
+    point, summary = lines
+    assert point["n_devices"] == 1 and point["platform"] == "cpu"
+    assert point["rollout_steps_per_s"] > 0 and point["train_steps_per_s"] > 0
+    assert summary["value"] == 1.0 and summary["target"] == 0.8
+    assert summary["n_devices_max"] == 1 and summary["device"] == "cpu"
 
 
 def test_default_device_is_cuda():

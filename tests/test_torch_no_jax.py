@@ -41,5 +41,6 @@ def test_port_imports_without_jax():
     for m in ("ppo.population", "ops.env_rollout", "ops.precision_probe",
               "bench", "utils.checkpoint", "utils.logging",
               "envs.telemetry", "utils.episode_csv", "best_selection",
-              "population_merge", "pipeline"):
+              "population_merge", "pipeline", "parallel.mesh",
+              "parallel.launch", "parallel.dryrun"):
         assert f"acas2d_tpu_torch.{m}" in mods, m

@@ -10,7 +10,8 @@ resumed process counts the evals done from `checkpoints/eval_counts.json`
 or, with that deleted, from the distinct steps of `eval.jsonl`.  The
 port's `count_prior_evals` answers as JAX `train.count_prior_evals` on
 the same run-dir fixtures, and `summary.json` has JAX's keys less those
-the port leaves out, with `device` added."""
+the port leaves out, with `device`, the kernels' `launches` and the
+`process_group` added."""
 
 import ast
 import json
@@ -247,14 +248,16 @@ def _jax_summary_keys():
 
 def test_summary_has_jax_keys(solo, population_straight):
     jax_keys = _jax_summary_keys()
-    left_out = {"compile_cache", "n_devices"}
+    left_out = {"compile_cache"}
     population_only = {"aggregate_steps_per_s", "population_selection"}
     assert left_out | population_only <= jax_keys
     with open(solo[0] / "summary.json") as f:
         summary = json.load(f)
     assert set(summary) == (jax_keys - left_out - population_only
-                            | {"device"})
+                            | {"device", "launches", "process_group"})
     assert summary["population"] is None and summary["device"] == "cpu"
+    assert summary["n_devices"] == 1 and summary["process_group"] is None
+    assert summary["launches"] == {"policy_rollout": 0, "ppo_grads": 0}
     assert summary["global_step"] == summary["steps_this_process"] == 4 * B
     assert summary["iters_per_call"] == 1          # JAX's default on a CPU
     assert {"dispatch_s", "train_first_call_s", "train_step_s", "log_s",
@@ -263,5 +266,6 @@ def test_summary_has_jax_keys(solo, population_straight):
     assert summary["argv"][:len(SOLO)] == SOLO
     with open(population_straight / "summary.json") as f:
         summary = json.load(f)
-    assert set(summary) == jax_keys - left_out | {"device"}
+    assert set(summary) == jax_keys - left_out | {"device", "launches",
+                                                  "process_group"}
     assert summary["population"] == 2
