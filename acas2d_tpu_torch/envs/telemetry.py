@@ -68,6 +68,14 @@ class Telemetry:
     outcome: torch.Tensor
     obs: torch.Tensor
 
+    def numpy(self) -> "Telemetry":
+        """The records as numpy arrays on the host."""
+        return Telemetry(**{k: v.cpu().numpy() for k, v in vars(self).items()})
+
+    def env(self, b: int) -> "Telemetry":
+        """Env b's records of a rollout (time on the first axis)."""
+        return Telemetry(**{k: v[:, b] for k, v in vars(self).items()})
+
 
 def _eval_records(state: EnvState, params: EnvParams
                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:

@@ -9,11 +9,12 @@ The JAX package builds a pandas DataFrame and writes it with
 module: the header, an `Episode` column from 1, float columns as numpy
 formats float64 (`astype(str)`, NaN empty), integers and everything else
 (lists of tuples included) through `str()`, minimal quoting, `\\n` line
-ends.
+ends.  `read_csv` reads such a file back without pandas.
 """
 
 from __future__ import annotations
 
+import ast
 import csv
 import io
 import numbers
@@ -66,6 +67,26 @@ def episode_records(init: Dict, tel, n_steps: int, num_traffic: int) -> Dict:
         "r_d_dev": rec("r_d_dev"),
         "r_step": rec("r_step"),
     }
+
+
+def episode_length(done) -> int:
+    """Steps an env took: up to its first done (inclusive, where the
+    reference drivers break their step loop), else all of them."""
+    done_idx = np.nonzero(np.asarray(done))[0]
+    return int(done_idx[0]) + 1 if done_idx.size else len(done)
+
+
+def batch_records(init: Dict, tel, num_traffic) -> List[Dict]:
+    """`episode_records` of every env of a rollout: `init` the (B,)-leading
+    numpy seed values, `tel` a numpy Telemetry (T, B, ...), each env cut
+    at its first done."""
+    episodes = []
+    for b, n in enumerate(np.asarray(num_traffic)):
+        tel_b = tel.env(b)
+        episodes.append(episode_records({k: v[b] for k, v in init.items()},
+                                        tel_b, episode_length(tel_b.done),
+                                        int(n)))
+    return episodes
 
 
 FULL_COLUMNS = ["Episode", "Outcome", "Total Reward", "Time Steps",
@@ -122,3 +143,29 @@ def write_csv(path: str, episodes: List[Dict],
     """Write `to_csv_text(episodes, columns)` to `path`."""
     with open(path, "w", newline="") as f:
         f.write(to_csv_text(episodes, columns))
+
+
+def _cell_value(text: str):
+    """One cell as `to_csv_text` wrote it: an integer, a float (an empty
+    cell is NaN), a list or tuple literal, or else the text itself."""
+    if text == "":
+        return float("nan")
+    for conv in (int, float):
+        try:
+            return conv(text)
+        except ValueError:
+            pass
+    if text[:1] in "[(":
+        return ast.literal_eval(text)
+    return text
+
+
+def read_csv(path: str) -> List[Dict]:
+    """The rows of an episode CSV (`write_csv`'s, the JAX package's or the
+    reference's own), one dict a row keyed by the header, each cell back
+    in the type it was written from: integers, floats, the path and
+    record lists (through `ast.literal_eval`) and the outcome's name."""
+    with open(path, newline="") as f:
+        reader = csv.reader(f)
+        header = next(reader)
+        return [dict(zip(header, map(_cell_value, row))) for row in reader]

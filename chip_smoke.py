@@ -138,7 +138,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      unfused variants against one process within SHARDED_TOL, each rank's
      first fused rollout chunk bit for bit against one launch of the
      kernel on its rows at seed + 7919 r, every rank's launches; (c)
-     `bench --scaling` under a launch of one.
+     `bench --scaling` under a launch of one;
+ 18. the host-side surface on the card, which launches no kernel: (a) the
+     env checker on the core (200 steps) and on `LegacyACAS2DEnv` (100
+     steps); (b) the reference's recorded actions
+     (artifacts/gym_main_actions.npy) through `LegacyACAS2DEnv` in float64
+     against the port's scalar `OracleEnv` from the same spawn (px within
+     1e-9, each reward within 1e-12, done, outcome and steps exact), and
+     the median ms a gym step; (c) `python -m acas2d_tpu_torch.baseline
+     --episodes 100` on the card against the same command on the CPU
+     (outcomes and steps equal, paths within 1e-9 px, returns within
+     1e-8), the count of bit-identical paths and the card run's wall.
 `python3 chip_smoke.py --cards W` (W >= 2 cards of one host) builds the
 kernels and runs phase 17 across the cards instead: the dryrun on W ranks
 over NCCL (2048 / W envs and 32 / W members a rank) held as in (b); the
@@ -1557,6 +1567,144 @@ def phase_multi_process():
     phase_scaling()
 
 
+# ----------------------------------------------------------------- phase 18
+
+GYM_ACTIONS = "artifacts/gym_main_actions.npy"
+REPLAY_PX_TOL = 1e-9          # tests/test_drivers.py:195-237's tolerances
+REPLAY_REWARD_TOL = 1e-12
+BASELINE_EPISODES = 100
+BASELINE_PX_TOL = 1e-9        # tests/test_drivers.py:24-41's tolerances
+BASELINE_REWARD_TOL = 1e-8
+
+
+def env_checks(device) -> str:
+    """(a) The env checker on the core (200 steps) and on the legacy gym
+    env (100 steps) on `device`; returns which Box the spaces are."""
+    from acas2d_tpu_torch.envs import gym_compat
+    from acas2d_tpu_torch.utils.env_check import (check_functional_env,
+                                                  check_gym_env)
+    check_functional_env(DEFAULT_PARAMS, 200, device=device)
+    check_gym_env(gym_compat.LegacyACAS2DEnv(device=device), 100)
+    return ("gymnasium.spaces.Box" if gym_compat._HAS_GYMNASIUM
+            else "_PlainBox (gymnasium is not installed)")
+
+
+def gym_replay(device):
+    """(b) The reference's recorded actions (`GYM_ACTIONS`, padded with
+    their last value) through `LegacyACAS2DEnv` in float64 on `device`
+    against the port's scalar `OracleEnv`, from the same spawn (the
+    stream's third: two resets burn the reference's two spawns): each
+    step's reward within REPLAY_REWARD_TOL, px and py within
+    REPLAY_PX_TOL, done, outcome and step count exact.  Returns (steps,
+    median ms a gym step on the host clock, largest px error, largest
+    reward error)."""
+    from acas2d_tpu_torch.envs.gym_compat import LegacyACAS2DEnv
+    from acas2d_tpu_torch.oracle import MersenneSpawner, OracleEnv
+    P = DEFAULT_PARAMS
+    seq = np.load(GYM_ACTIONS)
+    acts = np.full(P.max_steps, seq[-1])
+    acts[:len(seq)] = seq[:P.max_steps]
+    env = LegacyACAS2DEnv(P, device=device, dtype=torch.float64)
+    for _ in range(3):
+        env.reset()
+    oracle_env = OracleEnv(P, spawner=MersenneSpawner(P, skip_episodes=2))
+    oracle_env.reset()
+    step_ms, px_err, r_err = [], 0.0, 0.0
+    for a in acts:
+        t0 = time.perf_counter()
+        _, r, done, info = env.step(np.array([a]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        _, r_o, done_o, _ = oracle_env.step(np.array([a]))
+        st, so = env._backend.state, oracle_env.state
+        px_err = max(px_err, abs(float(st.px[0]) - so.px),
+                     abs(float(st.py[0]) - so.py))
+        r_err = max(r_err, abs(r - r_o))
+        check(done == done_o and info == {}, "gym replay: done differs")
+        if done:
+            break
+    check(done, "gym replay: the episode did not end")
+    check(env.outcome == oracle_env.state.outcome
+          and int(env._backend.state.steps[0]) == oracle_env.state.steps,
+          "gym replay: outcome or step count differs")
+    check(px_err <= REPLAY_PX_TOL and r_err <= REPLAY_REWARD_TOL,
+          f"gym replay: px error {px_err:.3e}, reward error {r_err:.3e}")
+    return len(step_ms), float(np.median(step_ms)), px_err, r_err
+
+
+def baseline_runs(devices, episodes=BASELINE_EPISODES):
+    """(c) `python -m acas2d_tpu_torch.baseline --episodes N` (the zero
+    policy, float64) on each device in turn: {device: (its CSV's rows,
+    wall seconds)}.  Its per-episode lines are kept off stdout."""
+    import contextlib
+    import io
+
+    from acas2d_tpu_torch import baseline
+    from acas2d_tpu_torch.utils.episode_csv import read_csv as read_rows
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in devices:
+            out = os.path.join(tmp, f"{dev}.csv")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = baseline.main(["--episodes", str(episodes), "--out",
+                                    out, "--device", dev])
+            check(rc == 0, f"baseline on {dev} exited {rc}")
+            runs[dev] = (read_rows(out), time.perf_counter() - t0)
+    return runs
+
+
+def compare_baselines(got, want):
+    """Two baseline CSVs' rows: outcomes and time steps equal, paths and
+    traffic paths within BASELINE_PX_TOL, total rewards within
+    BASELINE_REWARD_TOL.  Returns (episodes whose path is bit-identical,
+    largest px error, largest reward error)."""
+    check(len(got) == len(want), "baselines: episode counts differ")
+    same, px_err, r_err = 0, 0.0, 0.0
+    for g, w in zip(got, want):
+        check(g["Outcome"] == w["Outcome"]
+              and g["Time Steps"] == w["Time Steps"],
+              f"baselines: episode {g['Episode']} outcome or steps differ")
+        for key in ("Path", "Traffic Paths"):
+            a, b = np.asarray(g[key]), np.asarray(w[key])
+            check(a.shape == b.shape, f"baselines: {key} shapes differ")
+            px_err = max(px_err, float(np.abs(a - b).max(initial=0.0)))
+        r_err = max(r_err, abs(g["Total Reward"] - w["Total Reward"]))
+        same += g["Path"] == w["Path"]
+    check(px_err <= BASELINE_PX_TOL and r_err <= BASELINE_REWARD_TOL,
+          f"baselines: px error {px_err:.3e}, reward error {r_err:.3e}")
+    return same, px_err, r_err
+
+
+def phase_host_surface():
+    """Phase 18: the host-side surface on the card (the env checker, the
+    gym env, the baseline driver), which launches no kernel."""
+    reset_counts()
+    boxes = env_checks("cuda")
+    print(f"[host] check_functional_env (200 steps) and check_gym_env("
+          f"LegacyACAS2DEnv, 100 steps) passed on the card; spaces: {boxes}")
+    steps, step_ms, px_err, r_err = gym_replay("cuda")
+    print(f"[host] {GYM_ACTIONS} through LegacyACAS2DEnv (float64, card) "
+          f"against OracleEnv: {steps} steps, px error {px_err:.3e}, reward "
+          f"error {r_err:.3e}; median {step_ms:.4f} ms a gym step")
+    runs = baseline_runs(["cuda", "cpu"])
+    same, px_err, r_err = compare_baselines(runs["cuda"][0], runs["cpu"][0])
+    print(f"[host] baseline --episodes {BASELINE_EPISODES} (zero policy, "
+          f"float64): card {runs['cuda'][1]:.3f} s, CPU {runs['cpu'][1]:.3f} "
+          f"s; outcomes and steps equal, px error {px_err:.3e}, reward error "
+          f"{r_err:.3e}; {same}/{BASELINE_EPISODES} paths bit-identical "
+          f"between card and CPU")
+    launches = read_counts()
+    check(launches == expected(), f"the host surface launched {launches}")
+    try:
+        import matplotlib  # noqa: F401
+        drawing = "installed"
+    except ImportError:
+        drawing = "not installed"
+    print(f"[host] no kernel launched.  Not run here: rendering, analysis "
+          f"and manual play, which draw with matplotlib ({drawing} on this "
+          f"machine); the CPU tests cover them")
+
+
 # ----------------------------------------------------- phase 17, W cards
 
 CARDS_ITERS = 16
@@ -2220,6 +2368,7 @@ def main(argv=None) -> int:
     phase_reference()
     phase_float64()
     phase_multi_process()
+    phase_host_surface()
     cu, pt = "acas2d_tpu_torch/csrc/", "acas2d_tpu/ops/"
     rows = [
         ("policy_rollout", time_rollout,

@@ -639,6 +639,34 @@ def test_resume_is_exact_on_the_card(cuda, pop, tmp_path):
         assert torch.equal(got["env_state"][k], v), k
 
 
+@pytest.mark.cuda
+def test_env_checks_pass_on_the_card(cuda):
+    """The env checker on the core and on the legacy gym env, on the card
+    (chip_smoke.py phase 18 (a))."""
+    import chip_smoke
+    chip_smoke.env_checks("cuda")
+
+
+@pytest.mark.cuda
+def test_gym_env_on_the_card_replays_like_the_oracle(cuda):
+    """The recorded actions through the float64 legacy gym env on the card
+    against the scalar oracle: px within 1e-9, rewards within 1e-12
+    (chip_smoke.py phase 18 (b))."""
+    import chip_smoke
+    steps, _, px_err, r_err = chip_smoke.gym_replay("cuda")
+    assert steps > 1 and px_err <= 1e-9 and r_err <= 1e-12
+
+
+@pytest.mark.cuda
+def test_baseline_on_the_card_matches_the_cpu(cuda):
+    """`baseline --episodes 20` (zero policy, float64) on the card against
+    the CPU: outcomes and steps equal, paths within 1e-9 px, returns
+    within 1e-8 (chip_smoke.py phase 18 (c))."""
+    import chip_smoke
+    runs = chip_smoke.baseline_runs(["cuda", "cpu"], 20)
+    chip_smoke.compare_baselines(runs["cuda"][0], runs["cpu"][0])
+
+
 def test_kernel_wrappers_check_operands():
     """The CUDA entry points refuse CPU or mistyped operands before any
     launch (runs without a card: the checks come first)."""
