@@ -31,7 +31,10 @@ update), `fused_rollout` (with the autograd update),
 a call (`learner.make_train_loop`, replays of a captured iteration on the
 card), `fused_rollout+loop32`, `fused_rollout+update+loop32` and
 `fused_rollout+update_bf16+loop32`.  At 2048 envs on the card it adds
-JAX's `best_case_4096`, `fused_rollout+loop32` at 4096 envs.
+JAX's `best_case_4096`, `fused_rollout+loop32` at 4096 envs.  `--fused
+off` measures the `xla` row alone and no `best_case_4096`, as JAX's does;
+where JAX skips the fused variants on its CPU backend (the Pallas
+interpreter), the port runs their plain versions there.
 `--multi-traffic N` measures the general engine (`envs/core.py`, eager
 torch) at max_traffic N against 1, as the JAX bench does.
 
@@ -312,7 +315,9 @@ def train_main(args) -> Dict:
     case, reported apart, as JAX does."""
     dev = resolve_device(args.device)
     rows = {}
-    for label, rollout, update, bf16, loop_k in TRAIN_VARIANTS:
+    # --fused off: the xla row alone (bench.py:453-467)
+    variants = TRAIN_VARIANTS if args.fused == "on" else TRAIN_VARIANTS[:1]
+    for label, rollout, update, bf16, loop_k in variants:
         rows[label] = round(measure_train_at(
             args.train_envs, args.train_steps, fused_rollout=rollout,
             fused_update=update, bf16_update=bf16,
@@ -328,7 +333,7 @@ def train_main(args) -> Dict:
         "paths": rows,
         "device": device_label(dev),
     }
-    if args.train_envs == 2048 and dev.type == "cuda":
+    if args.train_envs == 2048 and dev.type == "cuda" and args.fused == "on":
         out["best_case_4096"] = round(measure_train_at(
             4096, args.train_steps, fused_update=False, loop_k=32,
             device=dev), 1)
@@ -410,6 +415,9 @@ def parse_args(argv=None):
     ap.add_argument("--train-minibatch", type=int, default=0,
                     help="--train: minibatch size (0 = auto: 65536 when it "
                          "divides the batch, else batch//8)")
+    ap.add_argument("--fused", choices=["on", "off"], default="on",
+                    help="--train: also measure the kernels' variants "
+                         "('off': the xla row alone, no best_case_4096)")
     ap.add_argument("--multi-traffic", type=int, default=0, metavar="N",
                     help="measure the general engine at max_traffic=N vs 1 "
                          "(obs-inclusive) instead of the headline")

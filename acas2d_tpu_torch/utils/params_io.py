@@ -96,19 +96,21 @@ def from_jax_params(tree: Dict[str, Any],
     return sd
 
 
-def to_jax_params(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """ActorCritic state_dict -> flax param tree with float32 numpy leaves
-    (the inverse of `from_jax_params`)."""
+def to_jax_params(sd: Dict[str, torch.Tensor],
+                  dtype=np.float32) -> Dict[str, Any]:
+    """ActorCritic state_dict -> flax param tree with numpy leaves of
+    `dtype` (the inverse of `from_jax_params`)."""
+    def leaf(t):
+        return t.detach().cpu().numpy().astype(dtype)
+
     pr: Dict[str, Any] = {}
     for prefix, path in _LAYERS.items():
         node = pr
         for k in path:
             node = node.setdefault(k, {})
-        node["kernel"] = sd[f"{prefix}.weight"].detach().cpu().numpy().T.astype(
-            np.float32)
-        node["bias"] = sd[f"{prefix}.bias"].detach().cpu().numpy().astype(
-            np.float32)
-    pr["log_std"] = sd["log_std"].detach().cpu().numpy().astype(np.float32)
+        node["kernel"] = np.ascontiguousarray(leaf(sd[f"{prefix}.weight"]).T)
+        node["bias"] = leaf(sd[f"{prefix}.bias"])
+    pr["log_std"] = leaf(sd["log_std"])
     return {"params": pr}
 
 

@@ -148,7 +148,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the median ms a gym step; (c) `python -m acas2d_tpu_torch.baseline
      --episodes 100` on the card against the same command on the CPU
      (outcomes and steps equal, paths within 1e-9 px, returns within
-     1e-8), the count of bit-identical paths and the card run's wall.
+     1e-8), the count of bit-identical paths and the card run's wall;
+ 19. the last modules of the JAX package and the sub-minute command's
+     shape: (a) the member rollout at P = 8 x B = 1024, K = 16 (launch
+     shape (MT, W) = (1, 2): 16-row tiles, two a block) and the member
+     gradients at P = 8 x N = 32,768 against their plain versions with
+     phase 2's and phase 3's tolerances; (b) the flagship's params into a
+     zip under SB3's layer names, through `compat.sb3_import`, as an npz
+     through `eval --params-npz --exact --episodes 100`: phase 6's mean
+     (1252.7158637595496) bit for bit, 100/100 goals; (c) `python -m
+     acas2d_tpu_torch.sub_minute` with scripts/sub_minute.sh's command cut
+     to 3 iterations, a 64-episode re-eval and a one-iteration polish, one
+     eager iteration a call: 8 rollout and 40 gradient launches an
+     iteration, `training_wall_s` beside the merge record, the strict
+     CSV's mean the summary's; (d) `parity_sweep` cut to 512 steps a run
+     (ref_s8, env8_s8, exact_eval_ref_s12; no kernel launch), then
+     `export_parity_artifacts` (the exported best params the best
+     checkpoint's) and `export_population_artifacts` of (c)'s run (its
+     strict record the strict eval's), into a temporary directory; (e)
+     `bench --train --fused off`: the `xla` row alone, no kernel launch.
 `python3 chip_smoke.py --cards W` (W >= 2 cards of one host) builds the
 kernels and runs phase 17 across the cards instead: the dryrun on W ranks
 over NCCL (2048 / W envs and 32 / W members a rank) held as in (b); the
@@ -162,6 +180,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import csv
+import io
 import json
 import math
 import os
@@ -169,6 +188,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -730,6 +750,7 @@ def phase_eval():
           "the flagship's CSV is not 100 goals")
     check(csv_mean == res["mean_reward"],
           "the CSV's returns are not the summary's")
+    return res
 
 
 # ------------------------------------------------------------ phases 11-13
@@ -1705,6 +1726,184 @@ def phase_host_surface():
           f"machine); the CPU tests cover them")
 
 
+# ----------------------------------------------------------------- phase 19
+
+# the sub-minute command's members and the seed of its record; the cut's
+# stage-1 iterations
+SUB_P, SUB_SEED, SUB_ITERS = 8, 3001, 3
+FLAGSHIP_EXACT = 1252.7158637595496       # phase 6's mean on the card
+# the port's module -> SB3 MlpPolicy's layer: the flagship goes into a zip
+# under SB3's names by this table, the inverse of the import's own
+PORT_TO_SB3 = {"pi_tower.dense_0": "mlp_extractor.policy_net.0",
+               "pi_tower.dense_1": "mlp_extractor.policy_net.2",
+               "vf_tower.dense_0": "mlp_extractor.value_net.0",
+               "vf_tower.dense_1": "mlp_extractor.value_net.2",
+               "action_head": "action_net",
+               "value_head": "value_net"}
+# the parity sweep cut to a few hundred steps a run
+SWEEP_CUT = ("--n-steps", "256", "--total-steps", "512", "--eval-every",
+             "256", "--eval-episodes", "4", "--checkpoint-every", "256")
+SWEEP_SEEDS = {"ref": (8,), "env8": (8,), "exact_eval_ref": (12,)}
+
+
+def with_values(argv, **values):
+    """argv with the value after each flag replaced (`total_steps=N`
+    replaces the value of --total-steps)."""
+    argv = list(argv)
+    for name, v in values.items():
+        argv[argv.index("--" + name.replace("_", "-")) + 1] = str(v)
+    return argv
+
+
+def sb3_round_trip(eval_res):
+    """(b): the flagship's params into a zip under SB3's names, through
+    `compat.sb3_import`, written as an npz and scored by the exact eval,
+    which must be phase 6's, bit for bit."""
+    from acas2d_tpu_torch import eval as eval_driver
+    from acas2d_tpu_torch.compat import sb3_import
+    from acas2d_tpu_torch.utils.params_io import (from_jax_params,
+                                                  load_params_npz,
+                                                  save_params_npz)
+    sd = from_jax_params(load_params_npz(FLAGSHIP))
+    sb3 = {"log_std": sd["log_std"]}
+    for port, name in PORT_TO_SB3.items():
+        for leaf in ("weight", "bias"):
+            sb3[f"{name}.{leaf}"] = sd[f"{port}.{leaf}"]
+    with tempfile.TemporaryDirectory() as out:
+        buf = io.BytesIO()
+        torch.save(sb3, buf)
+        path = os.path.join(out, "flagship_sb3.zip")
+        with zipfile.ZipFile(path, "w") as z:
+            z.writestr("policy.pth", buf.getvalue())
+        got, tree = sb3_import.load_sb3_policy(path)
+        same = set(got) == set(sd) and all(torch.equal(got[k], sd[k])
+                                           for k in sd)
+        npz = os.path.join(out, "flagship_sb3.npz")
+        save_params_npz(npz, tree)
+        res = eval_driver.run(eval_driver.parse_args(
+            ["--params-npz", npz, "--exact", "--episodes", "100", "--out",
+             os.path.join(out, "eval_100.csv")]))
+    print(f"[sb3] flagship -> SB3 zip -> compat.sb3_import -> npz: state "
+          f"dict bit-identical {same}; exact eval mean {res['mean_reward']!r}"
+          f", {res['goals']}/100 goals (phase 6: {eval_res['mean_reward']!r})")
+    check(same, "the SB3 import changed the flagship's params")
+    check(res["mean_reward"] == eval_res["mean_reward"] == FLAGSHIP_EXACT
+          and res["goals"] == 100,
+          "the imported flagship does not score as phase 6")
+
+
+def sub_minute_cut(dev, out):
+    """(c): `sub_minute` with scripts/sub_minute.sh's command cut to
+    SUB_ITERS iterations, a 64-episode re-eval and a one-iteration polish,
+    one eager iteration a call; the launch counters read around it (the
+    strict eval launches none), `training_wall_s` beside the merge record,
+    and the strict CSV's mean the summary's.  Returns its launches and the
+    strict eval's summary."""
+    from acas2d_tpu_torch import sub_minute
+    batch = POP_B * 128
+    argv = with_values(sub_minute.SUB_MINUTE_ARGV,
+                       total_steps=SUB_ITERS * batch,
+                       checkpoint_every=SUB_ITERS * batch, reval_episodes=64,
+                       polish_steps=batch) + ["--iters-per-call", "1"]
+    reset_counts()
+    rec = sub_minute.run_sub_minute(SUB_SEED, "smoke", argv, out,
+                                    device=dev.type)
+    launches = read_counts()
+    iters = SUB_ITERS + 1
+    print(f"[sub_minute] launches over {iters} iterations ({SUB_ITERS} at "
+          f"P={SUB_P}, 1 polish at P={SUB_P}): {launches}; training wall "
+          f"{rec['training_wall_s']:.2f} s")
+    check(launches == expected(policy_rollout=8 * iters,
+                               ppo_grads=40 * iters))
+    with open(os.path.join(rec["polish"], "population.json")) as f:
+        pop = json.load(f)
+    check({"training_wall_s", "stage1", "pipeline"} <= set(pop)
+          and pop["population"] == SUB_P,
+          f"population.json keys {sorted(pop)}")
+    rows = read_csv(os.path.join(rec["polish"], "eval_100_exact.csv"))
+    csv_mean = float(np.mean([float(r["Total Reward"]) for r in rows]))
+    strict = rec["strict"]
+    print(f"[sub_minute] training_wall_s {pop['training_wall_s']}; strict "
+          f"eval {strict['mean_reward']:.4f}, {strict['goals']}/100 goals; "
+          f"CSV mean {csv_mean!r}")
+    check(len(rows) == 100 and csv_mean == strict["mean_reward"],
+          "the strict CSV's returns are not the summary's")
+    return launches, strict
+
+
+def sweep_and_exports(dev, out, strict):
+    """(d): the parity sweep cut to SWEEP_CUT (a reference-config seed, an
+    8-env seed and the --exact-eval run; no kernel: the reference config
+    runs the unfused paths), then both exporters: the sweep's curves,
+    summary and best params, and (c)'s run as a population record."""
+    from acas2d_tpu_torch import (export_parity_artifacts,
+                                  export_population_artifacts, parity_sweep)
+    from acas2d_tpu_torch.utils.checkpoint import CheckpointManager
+    from acas2d_tpu_torch.utils.params_io import load_flat_params
+    sweep = tuple((p, tuple(flags) + SWEEP_CUT, seeds)
+                  for p, flags, seeds in parity_sweep.SWEEP)
+    sweep_dir, exp = os.path.join(out, "parity"), os.path.join(out, "exp")
+    reset_counts()
+    dirs, ms = synced_ms(lambda: parity_sweep.run_sweep(
+        sweep_dir, SWEEP_SEEDS, sweep, device=dev.type))
+    launches = read_counts()
+    names = [os.path.basename(d) for d in dirs]
+    print(f"[sweep] {names} in {ms / 1e3:.2f} s; launches {launches}")
+    check(names == ["ref_s8", "env8_s8", "exact_eval_ref_s12"]
+          and launches == expected(), f"{names}, {launches}")
+    check(export_parity_artifacts.main([sweep_dir, *names, "--out-dir",
+                                        exp]) == 0)
+    with open(os.path.join(exp, "parity_sweep_summary.json")) as f:
+        summary = json.load(f)
+    print(f"[sweep] summary {json.dumps(summary)}")
+    check(sorted(summary) == sorted(names) and all(
+        math.isfinite(v["final_eval_return"]) for v in summary.values()))
+    for name in ("ref_s8", "env8_s8"):
+        params, _ = load_flat_params(os.path.join(exp,
+                                                  f"ppo_{name}_best.npz"))
+        best = CheckpointManager(os.path.join(
+            sweep_dir, name, "checkpoints")).restore_raw(best=True)
+        check(torch.equal(params, best["params"].float().cpu()),
+              f"{name}: exported params are not the best checkpoint's")
+    check(export_population_artifacts.main(
+        ["--run-prefix", "smoke", "--seeds", str(SUB_SEED), "--stage",
+         "polish", "--runs-dir", out, "--out-dir", exp]) == 0)
+    with open(os.path.join(exp, f"smoke_s{SUB_SEED}_strict.json")) as f:
+        rec = json.load(f)
+    print(f"[export] strict record {json.dumps(rec)}")
+    check(rec["mean_reward"] == round(strict["mean_reward"], 2)
+          and rec["goals"] == strict["goals"] and rec["episodes"] == 100,
+          "the strict record is not the strict eval's")
+
+
+def phase_last_modules(dev, eval_res):
+    """Phase 19: the P = 8 kernels against their plain versions, the SB3
+    round trip, `sub_minute` and the parity sweep at cut budgets, both
+    exporters, and `bench --train --fused off`.  Returns the P = 8 kernel
+    rows' operands and errors, and their launches in `sub_minute`."""
+    from acas2d_tpu_torch import bench
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shape = policy_rollout.launch_shape(SUB_P, POP_B, sms)
+    print(f"[p8] member rollout launch shape at P={SUB_P} B={POP_B} on "
+          f"{sms} SMs: (MT, W) = {shape}")
+    check(shape == (1, 2), f"launch shape {shape}")
+    roll = phase_rollout(dev, SUB_P, POP_B)
+    grads = phase_grads(dev, SUB_P, POP_N)
+    sb3_round_trip(eval_res)
+    with tempfile.TemporaryDirectory() as out:
+        launches, strict = sub_minute_cut(dev, out)
+        sweep_and_exports(dev, out, strict)
+    reset_counts()
+    res = bench.run(bench.parse_args(["--train", "--fused", "off"]))
+    launches_off = read_counts()
+    print(json.dumps(res))
+    print(f"[bench] --train --fused off: paths {sorted(res['paths'])}; "
+          f"launches {launches_off}")
+    check(set(res["paths"]) == {"xla"} and "best_case_4096" not in res
+          and launches_off == expected())
+    return roll, grads, launches
+
+
 # ----------------------------------------------------- phase 17, W cards
 
 CARDS_ITERS = 16
@@ -2355,7 +2554,7 @@ def main(argv=None) -> int:
     pop_phases = phase_population_breakdown()
     bench_runs = phase_bench()
     bf16_launches = phase_bf16_training()
-    phase_eval()
+    eval_res = phase_eval()
     phase_greedy_graphs()
     phase_solo_run()
     phase_resume()
@@ -2369,6 +2568,7 @@ def main(argv=None) -> int:
     phase_float64()
     phase_multi_process()
     phase_host_surface()
+    roll8, grads8, sub_launches = phase_last_modules(dev, eval_res)
     cu, pt = "acas2d_tpu_torch/csrc/", "acas2d_tpu/ops/"
     rows = [
         ("policy_rollout", time_rollout,
@@ -2384,6 +2584,12 @@ def main(argv=None) -> int:
          pt + "pallas_update.py:60"),
         ("ppo_grads_members", time_grads, grads["members"][0],
          grads["members"][1], pop_launches["ppo_grads"], cu + "ppo_grads.cu",
+         pt + "pallas_update.py:60"),
+        ("policy_rollout_members_p8", time_rollout, (roll8[0], roll8[2]),
+         roll8[1], sub_launches["policy_rollout"], cu + "policy_rollout.cu",
+         pt + "pallas_policy.py:67"),
+        ("ppo_grads_members_p8", time_grads, grads8[0], grads8[1],
+         sub_launches["ppo_grads"], cu + "ppo_grads.cu",
          pt + "pallas_update.py:60"),
         ("ppo_grads_bf16", time_grads, bf16["solo"][0], bf16["solo"][1],
          bf16_launches[0]["ppo_grads"], cu + "ppo_grads.cu",

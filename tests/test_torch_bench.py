@@ -102,6 +102,19 @@ def test_train_mode_and_not_ported(capsys):
     assert out["device"] == "cpu" and out["n_envs"] == 64
 
 
+def test_train_mode_fused_off_measures_the_xla_path_alone(capsys):
+    """--fused off (JAX bench.py:453-467, :488): the `xla` row alone and no
+    4096-env best case; the default is on."""
+    assert bench.parse_args([]).fused == "on"
+    assert bench.main(["--device", "cpu", "--train", "--fused", "off",
+                       "--train-envs", "64", "--train-steps", "4",
+                       "--train-minibatch", "256"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out["paths"]) == {"xla"} and out["paths"]["xla"] > 0
+    assert out["value"] == out["paths"]["xla"]
+    assert "best_case_4096" not in out and out["device"] == "cpu"
+
+
 def test_multi_traffic_mode(capsys):
     assert bench.main(["--device", "cpu", "--multi-traffic", "3",
                        "--mt-envs", "64"]) == 0

@@ -109,7 +109,8 @@ def test_rollout_kernel_matches_plain(cuda, B, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,B,K", [(4, 1024, 8), (3, 200, 2), (32, 1000, 2)])
+@pytest.mark.parametrize("P,B,K", [(4, 1024, 8), (3, 200, 2), (32, 1000, 2),
+                                   (8, 1024, 16)])
 def test_member_rollout_kernel_matches_plain(cuda, P, B, K):
     args = _rollout_args(B, K, cuda, P=P)
     n0 = policy_rollout.fused_policy_rollout_members.launches
@@ -176,12 +177,14 @@ def test_rollout_kernel_runs_tf32_hmmas_without_spills(cuda, mt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,B,shape,blocks", [(1, 2048, (1, 1), 128),
-                                              (32, 1024, (2, 4), 256)],
-                         ids=["solo", "members"])
+                                              (32, 1024, (2, 4), 256),
+                                              (8, 1024, (1, 2), 256)],
+                         ids=["solo", "members", "sub_minute"])
 def test_rollout_launch_shape_at_the_main_path_shapes(cuda, P, B, shape,
                                                       blocks):
     """The solo launch spreads over 128 SMs (blocks of 4 warps); the
-    member launch keeps two blocks of 8 warps on an SM."""
+    member launch keeps two blocks of 8 warps on an SM; the sub-minute
+    command's P = 8 launch has 16-row tiles, two a block of 8 warps."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     mt, w = policy_rollout.launch_shape(P, B, sms)
     assert (mt, w) == shape
@@ -243,7 +246,7 @@ def test_grads_kernel_matches_plain(cuda, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,n", [(8, 8192), (3, 1000), (32, 32768),
-                                 (32, 1000)])
+                                 (32, 1000), (8, 32768)])
 def test_member_grads_kernel_matches_plain_and_repeats(cuda, P, n):
     args = _grad_args(n, cuda, P=P)
     g, s = ppo_grads._grads_cuda(*args)

@@ -65,7 +65,11 @@ def registry_kept():
 @pytest.fixture(autouse=True, scope="module")
 def kept_registry():
     """The port's gym_compat registers its env when first imported: put
-    the entry back after this file's tests."""
+    the entry back after this file's tests.  The JAX package's gym_compat
+    registers its own when first imported, and its test
+    (tests/test_drivers.py) counts on that: import it before the entry is
+    saved, so that a first import by this file is not undone after it."""
+    import acas2d_tpu.envs.gym_compat  # noqa: F401
     with registry_kept():
         yield
 
