@@ -23,7 +23,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("policy_rollout", "ppo_grads", "env_rollout", "precision_probe")
+SOURCES = ("policy_rollout", "ppo_grads", "env_rollout", "precision_probe",
+           "phase_mark")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -84,10 +85,12 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Dict[str, object]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if missing."""
+    """The loaded library of csrc/<name>.cu.  Where it is missing, every
+    missing library is built first (in parallel)."""
     lib = _LIBS.get(name)
     if lib is None:
-        build()
+        if not lib_path(name).exists():
+            build()
         lib = ctypes.CDLL(str(lib_path(name)))
         _LIBS[name] = lib
     return lib

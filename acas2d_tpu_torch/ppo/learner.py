@@ -55,6 +55,7 @@ state between its whole and a rank's share.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -68,7 +69,7 @@ from acas2d_tpu_torch.models.actor_critic import (
     ActorCritic, apply_flat, flatten, gaussian_entropy, gaussian_log_prob,
     members_forward, members_log_std, sample_action)
 from acas2d_tpu_torch.oracle import MersenneSpawner
-from acas2d_tpu_torch.ops import policy_rollout, ppo_grads
+from acas2d_tpu_torch.ops import phase_mark, policy_rollout, ppo_grads
 from acas2d_tpu_torch.ops import step_math as sm
 from acas2d_tpu_torch.ops.policy_rollout import (fused_policy_rollout,
                                                  seed_int32)
@@ -81,6 +82,7 @@ from acas2d_tpu_torch.parallel.mesh import (Mesh, all_gather_rows,
 from acas2d_tpu_torch.ppo.config import PPOConfig
 from acas2d_tpu_torch.ppo.gae import compute_gae
 from acas2d_tpu_torch.types import EnvState
+from acas2d_tpu_torch.utils import profiling
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -844,8 +846,43 @@ def iteration_inputs(cfg: PPOConfig, state, n_iters: int, device,
             scalars.view(n_iters, n_steps, 3).to(device))
 
 
-def _no_mark(name: str) -> None:
-    pass
+# an iteration's phases, in order: mark("start") as it starts, then
+# mark(phase) as each ends
+PHASES = ("rollout", "gae", "update")
+
+
+def phase_marks(dev: torch.device,
+                on_phase: Optional[Callable[[str], None]] = None
+                ) -> Callable[[str], None]:
+    """mark(name) for an iteration on `dev`: "start" as it starts, then
+    each of PHASES as it ends.  On the card it launches the boundary's
+    marker kernel in the current stream (`ops/phase_mark.py`), which a
+    captured iteration carries into every replay; on the CPU it ends the
+    host span of the phase that is open and opens the next phase's,
+    `iteration.<phase>`, while a profiler records (`utils/profiling`).
+    `on_phase(phase)` is called as each phase ends.  No mark changes a
+    tensor."""
+    if dev.type == "cuda":
+        def mark(name: str) -> None:
+            phase_mark.mark(name, dev)
+            if on_phase is not None and name != "start":
+                on_phase(name)
+
+        return mark
+    phase = None                # the open phase's span
+
+    def mark(name: str) -> None:
+        nonlocal phase
+        if phase is not None:
+            phase.__exit__(None, None, None)
+            phase = None
+        if on_phase is not None and name != "start":
+            on_phase(name)
+        nxt = 0 if name == "start" else PHASES.index(name) + 1
+        if nxt < len(PHASES):
+            phase = profiling.span(f"iteration.{PHASES[nxt]}").__enter__()
+
+    return mark
 
 
 def env_sharded(cfg: PPOConfig, mesh: Optional[Mesh]) -> bool:
@@ -885,6 +922,7 @@ def _solo_iteration(cfg: PPOConfig, env_params: EnvParams,
     def iteration(state: TrainState, seed, perms, scalars, mark,
                   draws: Optional[RolloutDraws] = None):
         check_state(cfg, state, dtype, draws)
+        mark("start")
         if cfg.fused_rollout:
             state, batch, last_value, env_metrics = collect_rollout_fused(
                 model, state, cfg, env_params,
@@ -938,8 +976,9 @@ def eager_step(iteration: Callable, cfg: PPOConfig, dev: torch.device,
     """step(state, seed=None, perms=None, draws=None) -> (state, metrics):
     `iteration` on the state's next draws (`iteration_inputs`, the seeds
     from the generators `seed_gens`; `draws`, an unfused rollout's
-    `RolloutDraws`, replace those made from the seed), run eagerly."""
-    mark = on_phase if on_phase is not None else _no_mark
+    `RolloutDraws`, replace those made from the seed), run eagerly, its
+    phases marked (`phase_marks`)."""
+    mark = phase_marks(dev, on_phase)
 
     def step(state, seed: Optional[int] = None, perms=None,
              draws: Optional[RolloutDraws] = None):
@@ -980,13 +1019,18 @@ def make_train_step(cfg: PPOConfig, env_params: EnvParams,
 
 def stacked_loop(step: Callable, iters_per_call: int) -> Callable:
     """train_loop(state) -> (state, metrics): `iters_per_call` calls of
-    `step`, their metrics stacked on a leading (K,) axis."""
+    `step`, their metrics stacked on a leading (K,) axis, under the span
+    `learner.call` (its key: the call's ordinal)."""
+    calls = itertools.count(1)
+
     def train_loop(state):
-        rows = []
-        for _ in range(iters_per_call):
-            state, metrics = step(state)
-            rows.append(metrics)
-        return state, {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+        with profiling.span("learner.call", call=next(calls)):
+            rows = []
+            for _ in range(iters_per_call):
+                state, metrics = step(state)
+                rows.append(metrics)
+            return state, {k: torch.stack([m[k] for m in rows])
+                           for k in rows[0]}
 
     return train_loop
 
@@ -1029,15 +1073,18 @@ class _IterationGraph:
     Inside the graph the new state is copied back into the static state,
     so replays chain with no copy between them, and the metrics are packed
     into one static tensor.  The launch counters that the capture moved
-    are put back; each replay adds the launches it holds."""
+    are put back; each replay adds the launches it holds.  Both the eager
+    iteration and the capture launch the phase marks (`phase_marks`), so
+    every replay carries them."""
 
     def __init__(self, iteration: Callable, state, inputs: Sequence):
         dev = state.params.device
+        self.mark = phase_marks(dev)
         current = torch.cuda.current_stream(dev)
         stream = torch.cuda.Stream(device=dev)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
-            first, metrics = iteration(state, *inputs, _no_mark)
+            first, metrics = iteration(state, *inputs, self.mark)
             self.names = list(metrics)
             self.first = (first, self.pack(metrics))
             self.iteration = iteration
@@ -1060,7 +1107,7 @@ class _IterationGraph:
         """What the graph holds: the iteration on the static state and
         inputs, its new state copied back into the static state; returns
         the packed metrics."""
-        new, metrics = self.iteration(self.static, *self.inputs, _no_mark)
+        new, metrics = self.iteration(self.static, *self.inputs, self.mark)
         for dst, src in zip(self.leaves, _state_leaves(new)):
             dst.copy_(src)
         return self.pack(metrics)
@@ -1098,7 +1145,13 @@ class ReplayedLoop:
     a copy of it, so the caller's state is never overwritten.  The
     result equals `iters_per_call` eager steps bit for bit, generators
     included.  A capture or replay that fails raises; nothing falls back
-    to the eager loop."""
+    to the eager loop.
+
+    A call is the span `learner.call` (its key: the call's ordinal), whose
+    children are the host's work in order: `learner.inputs`,
+    `learner.capture` (a shape's first call), `learner.load`, one
+    `learner.replay` a replay (the input copies and the graph's launch)
+    and `learner.unpack` (the result's state and metrics)."""
 
     def __init__(self, iteration: Callable, cfg: PPOConfig,
                  iters_per_call: int, seed_gens: Sequence[int] = (0,)):
@@ -1106,31 +1159,44 @@ class ReplayedLoop:
         self.iters_per_call = iters_per_call
         self.seed_gens = tuple(seed_gens)
         self._graphs: Dict[Tuple, _IterationGraph] = {}
+        self._calls = itertools.count(1)
 
     def __call__(self, state):
+        with profiling.span("learner.call", call=next(self._calls)):
+            return self._call(state)
+
+    def _call(self, state):
         K = self.iters_per_call
-        inputs = iteration_inputs(self.cfg, state, K, state.params.device,
-                                  seed_gens=self.seed_gens)
+        with profiling.span("learner.inputs"):
+            inputs = iteration_inputs(self.cfg, state, K,
+                                      state.params.device,
+                                      seed_gens=self.seed_gens)
         key = tuple((tuple(t.shape), t.dtype, t.device)
                     for t in _state_leaves(state))
         graph = self._graphs.get(key)
         packed = []
         if graph is None:
-            graph = _IterationGraph(self.iteration, state,
-                                    [x[0] for x in inputs])
+            with profiling.span("learner.capture"):
+                graph = _IterationGraph(self.iteration, state,
+                                        [x[0] for x in inputs])
             self._graphs[key] = graph
             state, first = graph.first
             graph.first = None
             packed.append(first)
         done = len(packed)
         if done < K:
-            graph.load(state)
+            with profiling.span("learner.load"):
+                graph.load(state)
             for k in range(done, K):
-                packed.append(graph.replay([x[k] for x in inputs]))
-            state = _with_leaves(
-                state, [t.clone() for t in graph.leaves], K - done,
-                (K - done) * self.cfg.n_epochs * self.cfg.n_minibatches)
-        return state, dict(zip(graph.names, torch.stack(packed).unbind(1)))
+                with profiling.span("learner.replay"):
+                    packed.append(graph.replay([x[k] for x in inputs]))
+        with profiling.span("learner.unpack"):
+            if done < K:
+                state = _with_leaves(
+                    state, [t.clone() for t in graph.leaves], K - done,
+                    (K - done) * self.cfg.n_epochs * self.cfg.n_minibatches)
+            return state, dict(zip(graph.names,
+                                   torch.stack(packed).unbind(1)))
 
 
 def replays(dev: torch.device, mesh: Optional[Mesh]) -> bool:
@@ -1214,14 +1280,21 @@ def greedy_rollout(policy_mean: Callable[[torch.Tensor], torch.Tensor],
     its own dtype (float64 for the exact protocol).  The host checks after
     every GREEDY_CHUNK steps whether every env has ended, and stops: later
     steps change nothing.  `GreedyEval` replays the same chunks as CUDA
-    graphs on the card; this loop is what it runs on the CPU."""
+    graphs on the card; this loop is what it runs on the CPU.  Each chunk,
+    its check included, is the span `eval.chunk`, and the chunks run add
+    to the counter `eval.chunks`."""
     carry = _greedy_start(env_state, obs)
+    chunks = 0
     for start in range(0, env_params.max_steps, GREEDY_CHUNK):
-        carry = _greedy_steps(
-            policy_mean, carry, env_params,
-            min(GREEDY_CHUNK, env_params.max_steps - start))
-        if bool(carry[-1].all()):
+        chunks += 1
+        with profiling.span("eval.chunk"):
+            carry = _greedy_steps(
+                policy_mean, carry, env_params,
+                min(GREEDY_CHUNK, env_params.max_steps - start))
+            done = bool(carry[-1].all())
+        if done:
             break
+    profiling.count("eval.chunks", chunks)
     return _greedy_result(carry)
 
 
@@ -1262,16 +1335,27 @@ class _ChunkGraphs:
             self.graphs[n] = g
 
     def run(self, params: torch.Tensor, env_state: EnvState,
-            obs: torch.Tensor) -> Dict[str, torch.Tensor]:
-        self.params.copy_(params)
-        for dst, src in zip(_leaves(self.carry),
-                            _leaves(_greedy_start(env_state, obs))):
-            dst.copy_(src)
+            obs: torch.Tensor) -> Tuple:
+        """Play the episodes from (env_state, obs) on the static carry,
+        which it returns: the params and the start copied in (the span
+        `eval.load`), then the chunks replayed until every env has ended,
+        each with the host's check (`eval.chunk`, counted to
+        `eval.chunks`)."""
+        with profiling.span("eval.load"):
+            self.params.copy_(params)
+            for dst, src in zip(_leaves(self.carry),
+                                _leaves(_greedy_start(env_state, obs))):
+                dst.copy_(src)
+        chunks = 0
         for n in self.lengths:
-            self.graphs[n].replay()
-            if bool(self.carry[-1].all()):
+            chunks += 1
+            with profiling.span("eval.chunk"):
+                self.graphs[n].replay()
+                done = bool(self.carry[-1].all())
+            if done:
                 break
-        return {k: v.clone() for k, v in _greedy_result(self.carry).items()}
+        profiling.count("eval.chunks", chunks)
+        return self.carry
 
 
 def _leaves(carry: Tuple) -> List[torch.Tensor]:
@@ -1300,13 +1384,20 @@ class GreedyEval:
     the start state copied into the graph's static inputs first; between
     replays the host reads only whether every env has ended, as the eager
     loop does, so the results are the eager loop's bit for bit.  A capture
-    that fails raises; nothing falls back to the eager loop on the card."""
+    that fails raises; nothing falls back to the eager loop on the card.
+
+    `evaluate` is one eval, the span `eval` (its key: the eval's ordinal),
+    whose children are the host's work: `eval.reset` (the spawn),
+    `eval.capture` (a shape's first eval on the card), `eval.load`, one
+    `eval.chunk` a chunk, and `eval.result` (the result's copies and its
+    reduction)."""
 
     def __init__(self, members: bool = False, device=None):
         self.members = members
         self._model = (None if members
                        else ActorCritic(device=resolve_device(device)))
         self._graphs: Dict[Tuple, _ChunkGraphs] = {}
+        self._evals = itertools.count(1)
 
     def policy_mean(self, params: torch.Tensor, obs: torch.Tensor
                     ) -> torch.Tensor:
@@ -1319,19 +1410,40 @@ class GreedyEval:
 
     @torch.no_grad()
     def __call__(self, params: torch.Tensor, env_state: EnvState,
-                 obs: torch.Tensor, env_params: EnvParams
-                 ) -> Dict[str, torch.Tensor]:
-        if obs.device.type != "cuda":
-            return greedy_rollout(lambda o: self.policy_mean(params, o),
-                                  env_state, obs, env_params)
-        key = (tuple(obs.shape), env_state.px.dtype, tuple(params.shape),
-               params.dtype, env_params)
-        graphs = self._graphs.get(key)
-        if graphs is None:
-            graphs = _ChunkGraphs(self.policy_mean, params, env_state, obs,
-                                  env_params)
-            self._graphs[key] = graphs
-        return graphs.run(params, env_state, obs)
+                 obs: torch.Tensor, env_params: EnvParams,
+                 reduce: Optional[Callable] = None):
+        """The greedy episodes from (env_state, obs): each env's first
+        episode's return, length, outcome and done, (n,) each; with
+        `reduce`, reduce(those)."""
+        cuda = obs.device.type == "cuda"
+        if cuda:
+            key = (tuple(obs.shape), env_state.px.dtype, tuple(params.shape),
+                   params.dtype, env_params)
+            graphs = self._graphs.get(key)
+            if graphs is None:
+                with profiling.span("eval.capture"):
+                    graphs = _ChunkGraphs(self.policy_mean, params,
+                                          env_state, obs, env_params)
+                self._graphs[key] = graphs
+            ep = _greedy_result(graphs.run(params, env_state, obs))
+        else:
+            ep = greedy_rollout(lambda o: self.policy_mean(params, o),
+                                env_state, obs, env_params)
+        with profiling.span("eval.result"):
+            if cuda:
+                # the static carry is the next eval's
+                ep = {k: v.clone() for k, v in ep.items()}
+            return ep if reduce is None else reduce(ep)
+
+    def evaluate(self, params: torch.Tensor,
+                 reset: Callable[[], Tuple[EnvState, torch.Tensor]],
+                 env_params: EnvParams, reduce: Callable):
+        """One eval: the episodes that `reset()` spawns, played greedily
+        and reduced by `reduce`."""
+        with profiling.span("eval", eval=next(self._evals)):
+            with profiling.span("eval.reset"):
+                env_state, obs = reset()
+            return self(params, env_state, obs, env_params, reduce)
 
 
 def eval_metrics(ep: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -1357,9 +1469,10 @@ def make_eval_fn(cfg: PPOConfig, env_params: EnvParams, dtype=torch.float32,
     greedy = GreedyEval(device=dev)
 
     def eval_fn(params, generator):
-        env_state, obs = vector.reset_batch(cfg.eval_episodes, env_params,
-                                            generator, dtype, dev)
-        return eval_metrics(greedy(params, env_state, obs, env_params))
+        return greedy.evaluate(
+            params, lambda: vector.reset_batch(cfg.eval_episodes, env_params,
+                                               generator, dtype, dev),
+            env_params, eval_metrics)
 
     return eval_fn
 
@@ -1403,14 +1516,16 @@ def make_exact_eval_fn(cfg: PPOConfig, env_params: EnvParams,
     the next cfg.eval_episodes spawns on every call.  `skip_episodes`
     fast-forwards the stream past the episodes an earlier process drew (a
     resumed run's)."""
+    dev = resolve_device(device)
     spawner = MersenneSpawner(env_params, seed=cfg.seed,
                               skip_episodes=skip_episodes)
-    greedy = GreedyEval(device=device)
+    greedy = GreedyEval(device=dev)
 
     def eval_fn(params, generator=None):
         del generator                    # Mersenne stream, not the generator
-        return eval_metrics(exact_episodes(params, env_params, spawner,
-                                           cfg.eval_episodes, dtype, device,
-                                           greedy))
+        return greedy.evaluate(
+            params, lambda: mersenne_reset(env_params, spawner,
+                                           cfg.eval_episodes, dtype, dev),
+            env_params, eval_metrics)
 
     return eval_fn

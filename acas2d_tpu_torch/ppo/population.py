@@ -184,6 +184,7 @@ def _population_iteration(cfg: PPOConfig, env_params: EnvParams,
     def iteration(state: PopulationState, seed, perms, scalars, mark,
                   draws: Optional[learner.RolloutDraws] = None):
         learner.check_state(cfg, state, dtype, draws)
+        mark("start")
         P, B = state.obs.shape[:2]
         first = 0
         if mesh is not None:
@@ -298,10 +299,11 @@ def make_population_eval(cfg: PPOConfig, env_params: EnvParams,
 
     def eval_all(params: torch.Tensor, generator: torch.Generator):
         P = params.shape[0]
-        env_state, obs = vector.reset_batch(P * n, env_params, generator,
-                                            dtype, dev)
-        ep = greedy(params, env_state, obs, env_params)
-        return learner.eval_metrics({k: v.view(P, n) for k, v in ep.items()})
+        return greedy.evaluate(
+            params, lambda: vector.reset_batch(P * n, env_params, generator,
+                                               dtype, dev), env_params,
+            lambda ep: learner.eval_metrics({k: v.view(P, n)
+                                             for k, v in ep.items()}))
 
     return eval_all
 

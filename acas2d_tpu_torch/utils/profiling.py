@@ -1,10 +1,21 @@
 """Tracing and phase timers (counterpart of `acas2d_tpu/utils/profiling.py`).
 
-  * `Trace` / `trace(out_dir)` — `torch.profiler` over the CPU and, on a
-    card, the CUDA activities, written to `out_dir/trace.json` as a Chrome
-    trace (chrome://tracing, Perfetto), where JAX writes an XPlane trace;
+  * `span(name, **key)` / `count(name, n)` — the program's own spans and
+    counters, recorded only while a `torch.profiler` session records (as
+    `torch._C._autograd._profiler_enabled()` reports it; a schedule's
+    warm-up step does not), so the untraced program pays one check
+    (~0.2 µs) a span.  A span holds its name, its start and end on the host
+    clock `time.time_ns()` (the clock that a Chrome trace's
+    `baseTimeNanoseconds` places the card's events on), its parent (a
+    stack per thread) and a small key; the newest `MAX_SPANS` are kept,
+    and `dropped()` counts the older ones.  `spans()`, `counters()` and
+    `clear()` read and reset them;
+  * `Trace` — `torch.profiler` over the CPU and, on a card, the CUDA
+    activities, written to `out_dir/trace.json` as a Chrome trace
+    (chrome://tracing, Perfetto) with the spans recorded in it, where JAX
+    writes an XPlane trace;
   * `PhaseTimers` — named wall-clock accumulators for the training phases
-    (a copy of JAX's);
+    (a copy of JAX's), each phase also a span of its name;
   * `device_memory_stats()` — the card's allocated memory, now and at its
     peak, from `torch.cuda.memory_stats`;
   * `kernel_busy_share(path)` — the share of a Chrome trace's window in
@@ -15,21 +26,134 @@
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
+import itertools
 import json
 import os
+import threading
 import time
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Deque, Dict, List, Tuple
 
 import torch
 
 TRACE_FILE = "trace.json"
+MAX_SPANS = 65_536
+
+recording = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+@dataclasses.dataclass(frozen=True)
+class Span:
+    """A recorded span: host clock (ns), its id and its parent's (-1 at
+    the top of its thread), the thread, and the key it was opened with."""
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int
+    tid: int
+    key: Dict[str, object]
+
+
+class _Open:
+    """A span while it is open: on its thread's stack."""
+    __slots__ = ("rec", "name", "key", "id", "parent", "start")
+
+    def __init__(self, rec: "Recorder", name: str, key: Dict[str, object]):
+        self.rec, self.name, self.key = rec, name, key
+
+    def __enter__(self) -> "_Open":
+        stack = self.rec._stack()
+        self.parent = stack[-1].id if stack else -1
+        self.id = next(self.rec._ids)
+        stack.append(self)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = time.time_ns()
+        stack = self.rec._stack()
+        # a child left open (an exception inside an iteration's phase) is
+        # dropped with it; a span an enclosing span dropped is not kept
+        if self in stack:
+            del stack[stack.index(self):]
+            self.rec._keep(Span(self.name, self.start, end, self.id,
+                                self.parent, threading.get_native_id(),
+                                self.key))
+        return False
+
+
+class Recorder:
+    """Spans and counters of one process, kept while a profiler records."""
+
+    def __init__(self):
+        self._spans: Deque[Span] = collections.deque(maxlen=MAX_SPANS)
+        self._counters: Dict[str, int] = {}
+        self._dropped = 0
+        self._ids = itertools.count()
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _stack(self) -> List[_Open]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _keep(self, span: Span) -> None:
+        with self._lock:
+            if len(self._spans) == self._spans.maxlen:
+                self._dropped += 1
+            self._spans.append(span)
+
+    def span(self, name: str, **key):
+        """A context manager that records the block as span `name` while a
+        profiler records, and does nothing otherwise."""
+        return _Open(self, name, key) if recording() else _OFF
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add `n` to counter `name` while a profiler records."""
+        if recording():
+            with self._lock:
+                self._counters[name] = self._counters.get(name, 0) + n
+
+    def spans(self) -> List[Span]:
+        with self._lock:
+            return list(self._spans)
+
+    def counters(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counters)
+
+    def dropped(self) -> int:
+        return self._dropped
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self._counters.clear()
+            self._dropped = 0
+
+
+RECORDER = Recorder()
+span = RECORDER.span
+count = RECORDER.count
+spans = RECORDER.spans
+counters = RECORDER.counters
+dropped = RECORDER.dropped
+clear = RECORDER.clear
 
 
 class Trace:
     """A `torch.profiler` trace between `start()` and `stop()`, written by
     `stop()` to `<out_dir>/trace.json`.  `cuda` adds the card's activities
-    (its kernels and copies, through CUPTI)."""
+    (its kernels and copies, through CUPTI).  The spans recorded between
+    the two are added to it as `"cat": "program"` events, placed on the
+    trace's clock by its `baseTimeNanoseconds`, so that one timeline holds
+    the program's phases, its host operations and the card's work."""
 
     def __init__(self, out_dir: str, cuda: bool):
         self.path = os.path.join(out_dir, TRACE_FILE)
@@ -37,31 +161,29 @@ class Trace:
         if cuda:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         self._prof = torch.profiler.profile(activities=acts)
+        self._t0 = 0
 
     def start(self) -> None:
+        self._t0 = time.time_ns()
         self._prof.start()
 
     def stop(self) -> str:
         self._prof.stop()
         os.makedirs(os.path.dirname(self.path), exist_ok=True)
         self._prof.export_chrome_trace(self.path)
+        with open(self.path) as f:
+            data = json.load(f)
+        base = int(data.get("baseTimeNanoseconds", 0))
+        pid = os.getpid()
+        data["traceEvents"].extend(
+            {"ph": "X", "cat": "program", "name": s.name, "pid": pid,
+             "tid": s.tid, "ts": (s.start_ns - base) / 1e3,
+             "dur": (s.end_ns - s.start_ns) / 1e3,
+             "args": {**s.key, "id": s.id, "parent": s.parent}}
+            for s in spans() if s.start_ns >= self._t0)
+        with open(self.path, "w") as f:
+            json.dump(data, f)
         return self.path
-
-
-@contextlib.contextmanager
-def trace(out_dir: Optional[str], cuda: bool = False
-          ) -> Iterator[Optional[Trace]]:
-    """Profile the enclosed block to `out_dir` (no-op when out_dir is
-    None)."""
-    if not out_dir:
-        yield None
-        return
-    t = Trace(out_dir, cuda)
-    t.start()
-    try:
-        yield t
-    finally:
-        t.stop()
 
 
 class PhaseTimers:
@@ -84,7 +206,8 @@ class PhaseTimers:
     def __call__(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.total[name] = self.total.get(name, 0.0) + dt

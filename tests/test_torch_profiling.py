@@ -1,6 +1,6 @@
 """The port's tracing and phase timers (`acas2d_tpu_torch/utils/
 profiling.py`) on the CPU: the busy share and kernel times read from a
-Chrome trace, `trace()` and `train.py --profile`, and `PhaseTimers`
+Chrome trace, `Trace` and `train.py --profile`, and `PhaseTimers`
 against JAX's on the same phases."""
 
 import json
@@ -58,14 +58,31 @@ def test_kernel_times_are_summed_by_name(tmp_path):
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
-    with profiling.trace(str(tmp_path / "t")) as t:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+    """`Trace` writes the host's operations and the program's spans of its
+    session, on the trace's own clock, into one Chrome trace; a span
+    recorded before it started is left out."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.span("before"):
+            pass
+    t = profiling.Trace(str(tmp_path / "t"), cuda=False)
+    t.start()
+    with profiling.span("outer", call=1):
+        with profiling.span("inner"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    assert t.stop() == t.path == str(tmp_path / "t" / profiling.TRACE_FILE)
     with open(t.path) as f:
-        events = json.load(f)["traceEvents"]
-    assert t.path == str(tmp_path / "t" / profiling.TRACE_FILE)
-    assert any("mm" in e.get("name", "") for e in events)
-    with profiling.trace(None) as nothing:
-        assert nothing is None
+        data = json.load(f)
+    events = data["traceEvents"]
+    mm = next(e for e in events if "mm" in e.get("name", "")
+              and e.get("ph") == "X")
+    program = {e["name"]: e for e in events if e.get("cat") == "program"}
+    assert set(program) == {"outer", "inner"}
+    outer, inner = program["outer"], program["inner"]
+    assert outer["args"]["call"] == 1
+    assert inner["args"]["parent"] == outer["args"]["id"]
+    assert outer["ts"] <= inner["ts"] <= mm["ts"]
+    assert mm["ts"] + mm["dur"] <= inner["ts"] + inner["dur"] + 1.0
 
 
 def test_phase_timers_report_as_jax(monkeypatch):
@@ -102,7 +119,14 @@ def test_train_profiles_calls_2_to_4(population, tmp_path, capsys):
     assert len(rows) == 5
     path = tmp_path / "r" / "trace" / profiling.TRACE_FILE
     with open(path) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    program = [e["name"] for e in events if e.get("cat") == "program"]
+    # three traced calls of one eager iteration: the driver's phases and
+    # the iteration's
+    for name in ("dispatch", "train_step", "iteration.rollout",
+                 "iteration.gae", "iteration.update"):
+        assert program.count(name) == 3, name
+    assert "log" in program
     with open(tmp_path / "r" / "summary.json") as f:
         phases = json.load(f)["phases"]
     assert phases["dispatch_calls"] == 5
