@@ -31,12 +31,16 @@ from acas2d_tpu_torch.ab import build, smi, source_dirs
 from acas2d_tpu_torch.models.actor_critic import ActorCritic, flatten
 from acas2d_tpu_torch.ops import _cuda, ppo_grads
 
-FILES = ("ppo_grads.cu", "tf32x3.cuh")
+FILES = ("ppo_grads.cu", "tf32x3.cuh", "wgmma_tf32.cuh")
 # variant: [(file, old text, new text)] edits of the package's sources
 VARIANTS = {
-    # no tensor-core product: the mma.sync instructions are skipped
+    # no mma.sync product (the bf16 pass's): the instructions are skipped
     "no_mma": [("ppo_grads.cu", 'asm("mma.sync', 'if (0) asm("mma.sync'),
                ("tf32x3.cuh", 'asm("mma.sync', 'if (0) asm("mma.sync')],
+    # no warpgroup product (the f32 pass's): the wgmma.mma_async
+    # instructions are skipped
+    "no_wgmma": [("wgmma_tf32.cuh", '"wgmma.mma_async',
+                  '"// wgmma.mma_async')],
     # no ldmatrix: fragments are a lane's id
     "no_ldmatrix": [("ppo_grads.cu", 'asm volatile("ldmatrix',
                      'for (auto& x : r) x = threadIdx.x;\n  '
@@ -48,11 +52,11 @@ VARIANTS = {
                       'if (0) asm volatile("bar.sync')],
     # no bf16 copies written: the products read whatever the copies hold
     "no_bf16_copies": [
-        ("ppo_grads.cu", "if constexpr (BF16) e2b[",
-         "if constexpr (false) e2b["),
-        ("ppo_grads.cu", "if constexpr (BF16) e1b[",
-         "if constexpr (false) e1b["),
-        ("ppo_grads.cu", "store_c<BF16>(h1", "store_c(h1")],
+        ("ppo_grads.cu", "e2b[(t0 + r) * LDB + col] =",
+         "if (0) e2b[(t0 + r) * LDB + col] ="),
+        ("ppo_grads.cu", "e1b[(t0 + r) * LDB + col] =",
+         "if (0) e1b[(t0 + r) * LDB + col] ="),
+        ("ppo_grads.cu", "store_c<true>(h1", "store_c(h1")],
 }
 SHAPES = {"solo": (1, 65536), "members": (32, 32768)}
 

@@ -36,10 +36,11 @@ in torch, member by member) for CPU tensors.  There is no fallback between
 the two.  `ppo_minibatch_grads_members.launches` counts the kernel's
 launches, solo or member (a captured training iteration's replays are
 counted by `learner.make_train_loop`).  The kernel runs its products on
-the tensor cores: without `bf16` as 3xTF32 (each float32 operand split
-into two TF32 parts), which keeps them close to float32 (on the card
-every gradient block agrees with the plain version within 4e-5 of its
-largest entry); with `bf16` as one bf16 product each, on operands
+the tensor cores: without `bf16` on Hopper's warpgroup MMA (wgmma, one
+warpgroup a 64-row tile) as 3xTF32 (each float32 operand split into two
+TF32 parts), which keeps them close to float32 (on the card every
+gradient block agrees with the plain version within 4e-5 of its largest
+entry); with `bf16` as one bf16 product each (mma.sync), on operands
 rounded once as the plain version rounds them.
 """
 

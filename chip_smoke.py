@@ -6,9 +6,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. build the CUDA kernels from acas2d_tpu_torch/csrc with nvcc (sm_90a),
      one nvcc per source, all at once; the registers, spills, shared memory
      and blocks an SM of the gradient kernel's two variants, and their
-     instructions from `cuobjdump -sass`, which must include tensor-core
-     HMMAs of their type (TF32 for f32, BF16 for bf16); the registers,
-     local memory and blocks an SM of the env rollout's four
+     instructions from `cuobjdump -sass`: the f32 pass's products must be
+     TF32 warpgroup HGMMAs and no HMMA, the bf16 pass's BF16 HMMAs; the
+     registers, local memory and blocks an SM of the env rollout's four
      instantiations, and their instructions by kind, in all and in the
      T-step loop's body; the policy rollout's registers, stack frame,
      spills (which must be 0), dynamic shared memory and blocks an SM at
@@ -330,10 +330,11 @@ def bound_ops(n_bytes: float, ops):
 
 # ------------------------------------------------------------------ phase 1
 
-# the gradient kernel's first passes (function names in the SASS) and
-# whether each is the bf16 variant, whose HMMAs must be BF16 (else TF32)
-GRAD_KERNELS = (("grad_partials_tf32x3", False),
-                ("grad_partials_bf16mma", True))
+# the gradient kernel's first passes (function names in the SASS), whether
+# each is the bf16 variant, and its tensor-core instruction and operand
+# type: the f32 pass's warpgroup HGMMAs in TF32, the bf16 pass's HMMAs
+GRAD_KERNELS = (("grad_partials_tf32x3", False, "HGMMA", ".TF32"),
+                ("grad_partials_bf16mma", True, "HMMA", ".BF16"))
 
 
 def phase_build():
@@ -347,7 +348,7 @@ def phase_build():
         for line in str(info["log"]).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {name}: {line.strip()}")
-    for kernel, bf16 in GRAD_KERNELS:
+    for kernel, bf16, *_ in GRAD_KERNELS:
         regs, local, static, dynamic, per_sm = ppo_grads.kernel_attrs(bf16)
         print(f"[build] ppo_grads {'bf16' if bf16 else 'f32'} first pass "
               f"({kernel}): {regs} registers, {local} bytes spilled a "
@@ -360,22 +361,22 @@ def phase_build():
 
 def sass_census():
     """`cuobjdump -sass` of the gradient library: each first pass's
-    instructions by kind.  Its products must be tensor-core HMMAs of its
-    operand type, TF32 (f32) or BF16 (bf16), and of no other."""
-    ops = _cuda.sass_ops("ppo_grads", [name for name, _ in GRAD_KERNELS])
+    instructions by kind.  Its products must be tensor-core instructions of
+    its design and operand type (GRAD_KERNELS), and of no other."""
+    ops = _cuda.sass_ops("ppo_grads", [name for name, *_ in GRAD_KERNELS])
     kinds = ("LDS", "LDSM", "STS", "MUFU", "BAR", "FFMA", "FADD", "FMUL",
-             "SHFL")
-    for name, bf16 in GRAD_KERNELS:
+             "SHFL", "LDGSTS", "WARPGROUP")
+    for name, _, op, want in GRAD_KERNELS:
         got = ops[name]
-        hmma = {k: v for k, v in got.items() if k.startswith("HMMA")}
+        mma = {k: v for k, v in got.items()
+               if k.startswith(("HMMA", "HGMMA"))}
         by_kind = {k: sum(v for o, v in got.items() if o.split(".")[0] == k)
                    for k in kinds}
         print(f"[build] SASS of {name} (cuobjdump -sass): "
-              f"{sum(got.values())} instructions; {hmma}; "
+              f"{sum(got.values())} instructions; {mma}; "
               + ", ".join(f"{k} {v}" for k, v in by_kind.items()))
-        want = ".BF16" if bf16 else ".TF32"
-        check(hmma and all(want in k for k in hmma),
-              f"{name} runs no {want[1:]} HMMA, or another kind")
+        check(mma and all(k.split(".")[0] == op and want in k for k in mma),
+              f"{name} runs no {want[1:]} {op}, or another kind")
 
 
 def env_census():

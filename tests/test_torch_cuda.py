@@ -261,6 +261,34 @@ def test_member_grads_kernel_matches_plain_and_repeats(cuda, P, n):
 
 
 @pytest.mark.cuda
+def test_member_grads_sum_a_cancelling_value_head_bias(cuda):
+    """The value head's bias gradient is one float32 sum over a member's
+    rows of dvalue_scale * (value - return).  With the value head's weights
+    zero the value is its bias exactly, so the kernel sums the same float32
+    terms as here; returns drawn about it cancel the sum to ~1 / 40,000 of
+    its terms.  The kernel holds the terms' exact sum within GRAD_REL_TOL
+    (3.5e-5 on the CPU emulation of its order); plain float32 running sums
+    over a block's rows err up to 1.3e-4."""
+    P, n = 32, 32768
+    params, data, c, ent = _grad_args(n, cuda, P=P)
+    params, data = params.cpu(), data.cpu()
+    wh = slice(4801 + 4736, 4801 + 4800)     # the value tower's w_head
+    params[:, wh] = 0.0
+    bh = params[:, 4801 + 4800]
+    gen = torch.Generator().manual_seed(9)
+    for m in range(P):
+        noise = torch.randn(n, generator=gen, dtype=torch.float64) * 0.5
+        data[m, :, 12] = (bh[m].double() + noise - noise.mean()
+                          + 1e-5).float()
+    g, _ = ppo_grads._grads_cuda(params.to(cuda), data.to(cuda), c, ent)
+    terms = (torch.tensor(c["dvalue_scale"], dtype=torch.float32)
+             * (bh[:, None] - data[:, :, 12]))
+    want = terms.double().sum(1)
+    got = g[:, 4801 + 4800].cpu().double()
+    assert float(((got - want).abs() / want.abs()).max()) < GRAD_REL_TOL
+
+
+@pytest.mark.cuda
 def test_member_grads_p1_equals_the_solo_launch(cuda):
     params, data, c, ent = _grad_args(4096, cuda, P=1)
     kw = dict(clip_range=0.2, vf_coef=0.5, ent_coef=ent)
@@ -359,17 +387,30 @@ def test_bf16_grads_kernel_matches_plain(cuda, P, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16,name,kind", [
-    (False, "grad_partials_tf32x3", ".TF32"),
-    (True, "grad_partials_bf16mma", ".BF16")], ids=["f32", "bf16"])
+    (True, "grad_partials_bf16mma", ".BF16")], ids=["bf16"])
 def test_grads_kernel_runs_tensor_core_hmmas_at_two_blocks_an_sm(
         cuda, bf16, name, kind):
-    """Each variant's first pass multiplies on the tensor cores in its own
-    operand type, and two blocks (16 warps) of it fit on an SM."""
+    """The bf16 first pass multiplies on the tensor cores (mma.sync) in its
+    own operand type, and two blocks (16 warps) of it fit on an SM."""
     *_, per_sm = ppo_grads.kernel_attrs(bf16)
     assert per_sm == 2
     ops = _cuda.sass_ops("ppo_grads", [name])[name]
     hmma = [op for op in ops if op.startswith("HMMA")]
     assert hmma and all(kind in op for op in hmma), ops
+
+
+@pytest.mark.cuda
+def test_f32_grads_kernel_runs_tf32_hgmmas_at_one_block_an_sm(cuda):
+    """The f32 first pass multiplies on Hopper's warpgroup MMA alone (TF32
+    HGMMAs, no mma.sync HMMA), and one block (two warpgroups) fits on an
+    SM."""
+    *_, per_sm = ppo_grads.kernel_attrs(False)
+    assert per_sm == 1
+    name = "grad_partials_tf32x3"
+    ops = _cuda.sass_ops("ppo_grads", [name])[name]
+    hgmma = [op for op in ops if op.startswith("HGMMA")]
+    assert hgmma and all(".TF32" in op for op in hgmma), ops
+    assert not [op for op in ops if op.startswith("HMMA")], ops
 
 
 @pytest.mark.cuda
