@@ -26,11 +26,21 @@ back together (checkpoints hold the whole state).  The collectives the
 learner needs are three: `all_reduce_mean` / `all_reduce_sum` of one flat
 buffer, `all_gather_rows` and `broadcast`.  Each is one collective a call,
 and on a mesh of one process (no group) none runs.
+
+Each collective that runs is a span (`collective.all_reduce`,
+`collective.all_gather`, `collective.broadcast`; the join is `mesh.join`)
+and adds to the counters `collective.all_reduce`, `collective.all_gather`
+and their bytes (`.bytes`: the all-reduced buffer, the gathered output),
+while a profiler records (`utils/profiling`).  `TALLY` counts the same
+always, those captured into a CUDA graph included, where no counter
+counts: `learner.ReplayedLoop` reads from it what its captured iteration
+holds and counts that at every replay.
 """
 
 from __future__ import annotations
 
 import atexit
+import collections
 import dataclasses
 import datetime
 import os
@@ -42,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 from acas2d_tpu_torch import resolve_device
+from acas2d_tpu_torch.utils import profiling
 
 # JAX folds the shard's index times this prime into a shard's rollout seed,
 # since the kernel's program ids restart at 0 on every device
@@ -49,6 +60,22 @@ from acas2d_tpu_torch import resolve_device
 SEED_STRIDE = 7919
 # how long a collective (and the join) may wait for the other ranks
 TIMEOUT_S = 600
+# the collectives this process has run and their bytes, by counter name,
+# counted on every call (captured ones included) whether or not a profiler
+# records
+TALLY = collections.Counter()
+
+
+def _tally(kind: str, x: torch.Tensor) -> None:
+    """Count one collective `kind` over `x` (the all-reduced buffer, the
+    gathered output) in TALLY, and, unless it is being captured into a
+    CUDA graph (whose replays count it), in the program's counters."""
+    name, n = f"collective.{kind}", x.numel() * x.element_size()
+    TALLY[name] += 1
+    TALLY[name + ".bytes"] += n
+    if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+        profiling.count(name)
+        profiling.count(name + ".bytes", n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,8 +126,9 @@ def multihost_init(device=None, backend: Optional[str] = None,
         if backend == "nccl":
             torch.cuda.set_device(dev)
             kw["device_id"] = dev
-        dist.init_process_group(
-            backend, timeout=datetime.timedelta(seconds=timeout_s), **kw)
+        with profiling.span("mesh.join"):
+            dist.init_process_group(
+                backend, timeout=datetime.timedelta(seconds=timeout_s), **kw)
         atexit.register(_leave)
     return make_mesh(dev)
 
@@ -176,7 +204,9 @@ def all_reduce_sum(flat: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if not mesh.distributed:
         return flat
     out = flat.clone()
-    dist.all_reduce(out, group=mesh.group)
+    with profiling.span("collective.all_reduce"):
+        dist.all_reduce(out, group=mesh.group)
+    _tally("all_reduce", out)
     return out
 
 
@@ -196,9 +226,11 @@ def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         return x
     out = torch.empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    with warnings.catch_warnings():
+    with warnings.catch_warnings(), \
+            profiling.span("collective.all_gather"):
         warnings.filterwarnings("ignore", category=FutureWarning)
         dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.group)
+    _tally("all_gather", out)
     return out
 
 
@@ -213,9 +245,10 @@ def sync(mesh: Mesh) -> None:
 def broadcast(x: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
     """Rank `src`'s `x` on every rank (written into `x`), one collective."""
     if mesh.distributed:
-        dist.broadcast(x, dist.get_global_rank(mesh.group, src)
-                       if mesh.group is not dist.group.WORLD else src,
-                       group=mesh.group)
+        with profiling.span("collective.broadcast"):
+            dist.broadcast(x, dist.get_global_rank(mesh.group, src)
+                           if mesh.group is not dist.group.WORLD else src,
+                           group=mesh.group)
     return x
 
 

@@ -75,6 +75,7 @@ from acas2d_tpu_torch.ops.policy_rollout import (fused_policy_rollout,
                                                  seed_int32)
 from acas2d_tpu_torch.ops.ppo_grads import (normalize_adv_column,
                                             ppo_minibatch_grads_members)
+from acas2d_tpu_torch.parallel import mesh as mesh_lib
 from acas2d_tpu_torch.parallel.mesh import (Mesh, all_gather_rows,
                                             all_reduce_mean, all_reduce_sum,
                                             backend_of, env_rows, fold_seed,
@@ -1073,7 +1074,9 @@ class _IterationGraph:
     Inside the graph the new state is copied back into the static state,
     so replays chain with no copy between them, and the metrics are packed
     into one static tensor.  The launch counters that the capture moved
-    are put back; each replay adds the launches it holds.  Both the eager
+    are put back; each replay adds the launches it holds, and counts the
+    collectives it holds (`parallel.mesh.TALLY` over the capture) in the
+    program's counters while a profiler records.  Both the eager
     iteration and the capture launch the phase marks (`phase_marks`), so
     every replay carries them."""
 
@@ -1092,11 +1095,15 @@ class _IterationGraph:
             self.inputs = [x.clone() for x in inputs]
             self.static = _with_leaves(state, self.leaves, 0, 0)
             before = [c.launches for c in _COUNTERS]
+            tallied = dict(mesh_lib.TALLY)
             self.graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(self.graph, stream=stream):
                     self.metrics = self.captured()
             finally:
+                self.collectives = {k: n - tallied.get(k, 0) for k, n in
+                                    mesh_lib.TALLY.items()
+                                    if n != tallied.get(k, 0)}
                 self.launches = [c.launches - n
                                  for c, n in zip(_COUNTERS, before)]
                 for c, n in zip(_COUNTERS, before):
@@ -1127,6 +1134,8 @@ class _IterationGraph:
         self.graph.replay()
         for c, n in zip(_COUNTERS, self.launches):
             c.launches += n
+        for k, n in self.collectives.items():
+            profiling.count(k, n)
         return self.metrics.clone()
 
 

@@ -711,6 +711,35 @@ def test_baseline_on_the_card_matches_the_cpu(cuda):
     chip_smoke.compare_baselines(runs["cuda"][0], runs["cpu"][0])
 
 
+@pytest.mark.cuda
+def test_sharded_replayed_call_over_nccl_counts_its_collectives(cuda,
+                                                               tmp_path):
+    """Four ranks over NCCL, 1,024 envs a card: a replayed call of 3
+    iterations (the first eager, then replays of the captured one, whose
+    graph holds the all-reduces and the all-gather) equals 3 eager steps
+    bit for bit; the capture's tally is the iteration's collectives (a
+    minibatch step's all-reduce each, one of the episode sums, one
+    all-gather of the batch), and a profiled call of 3 replays counts
+    3 times it (`tests/test_torch_sharded_bench.py card_rank`)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards")
+    from acas2d_tpu_torch.parallel import launch
+    here = os.path.dirname(os.path.abspath(__file__))
+    # by path: a `tests` package elsewhere on the path may shadow this
+    # directory's modules under `-m`
+    launch.check_ranks(launch.run_ranks(
+        [os.path.join(here, "test_torch_sharded_bench.py"), "card",
+         str(tmp_path)], 4, 600, cwd=os.path.dirname(here)))
+    with open(tmp_path / "card.json") as f:
+        got = json.load(f)
+    assert got["same"]
+    tally = got["tally"]
+    assert tally["collective.all_reduce"] == got["steps"] + 1
+    assert tally["collective.all_gather"] == 1
+    assert tally["collective.all_gather.bytes"] == got["batch_bytes"]
+    assert got["counted"] == {k: 3 * v for k, v in tally.items()}
+
+
 def test_kernel_wrappers_check_operands():
     """The CUDA entry points refuse CPU or mistyped operands before any
     launch (runs without a card: the checks come first)."""
