@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "tf32x3.cuh"
 #include "wgmma_tf32.cuh"
 
@@ -1077,6 +1079,213 @@ cudaError_t set_partials_smem(int bf16) {
   return err;
 }
 
+// ------------------------------------------ advantage normalisation
+//
+// SB3's advantage normalisation, (adv - mean) / (std + 1e-8) with the
+// population std (ddof 0), of every minibatch of an epoch at once and in
+// place: the epoch's packed copy is G groups (minibatch x member) of M rows
+// of 13, and each group's column 11 is normalised over its M rows.  Plain
+// version: ops/ppo_grads.py:normalize_adv_minibatches on CPU tensors
+// (normalize_adv_column's torch ops).  It replaces no TPU kernel: JAX
+// normalises each minibatch with jnp outside its Pallas kernel
+// (acas2d_tpu/ops/pallas_update.py:290-297).  The learner ran the same
+// chain of torch ops once a minibatch step (seven launches, two of them
+// reductions of one long strided row); it runs these two launches once an
+// epoch.
+//
+// What bounds it: bytes.  A 52-byte row puts each advantage in a 32-byte
+// sector of its own, so a row costs one sector read by each kernel and one
+// written back: ~96 bytes a row (0.12 ms for an epoch of 4.19 M rows at
+// 3.35 TB/s).  So each thread loads NORM_ITEMS rows before it uses one,
+// and the grid is about NORM_WAVE blocks an SM deep at any shape.
+//
+// Two launches, since every block of a group needs the whole group's
+// statistics and blocks cannot wait on each other:
+//   adv_norm_partials_kernel: block (g, s) takes the s-th of S contiguous
+//   row ranges of group g and writes its (count, mean, M2) in float64, of
+//   the advantages less the group's first (its shift, which block 0 writes
+//   out).  A thread takes NORM_ITEMS rows at a time (their mean, then the
+//   squares about it, from registers) and merges them into its own by
+//   Chan's formula; then the warps' and the block's merges, in a fixed
+//   order.
+//   adv_norm_apply_kernel: every block of group g merges the S partials in
+//   the same fixed order, so all of them agree bit for bit; adds the shift
+//   back and rounds the mean, and std = sqrt(M2 / M), to the data's type
+//   once; and normalises its rows in place.  Block s = 0 writes the mean
+//   and std out.
+// No sum is kept in float32, whose running sums over thousands of rows
+// lose the digits a cancelling column needs, and E[x^2] - E[x]^2 is never
+// formed.  The shift keeps the merged means near 0, so a column of mean
+// 1e4 and std 1e-2 keeps float64's digits (unshifted, a merge rounds its
+// mean at 1e4's ulp, and the float64 std is ~1e-12 off).  S = min(32,
+// blocks to fill the card, NORM_ITEMS x NORM_THREADS row chunks of a
+// group), so one warp merges a group's partials.
+
+constexpr int ADV = 11;               // the advantage column
+constexpr int NORM_THREADS = 256;
+constexpr int NORM_ITEMS = 4;         // rows a thread loads before it uses one
+constexpr int NORM_MAX_SPLIT = 32;    // blocks a group: a warp lane each
+constexpr int NORM_WAVE = 8;          // blocks an SM the grid aims at
+
+struct Moments {
+  double n, mean, m2;                 // count, mean, sum of squares about it
+};
+
+// Chan's merge of two disjoint sets' moments.
+__device__ __forceinline__ Moments merge(const Moments& a, const Moments& b) {
+  if (b.n == 0.0) return a;
+  if (a.n == 0.0) return b;
+  const double n = a.n + b.n, d = b.mean - a.mean, f = b.n / n;
+  return {n, a.mean + d * f, a.m2 + b.m2 + d * d * a.n * f};
+}
+
+// Lane 0 gets the merge of the warp's 32, always in the same order.
+__device__ __forceinline__ Moments warp_merge(Moments m) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const Moments o{__shfl_down_sync(0xffffffffu, m.n, off),
+                    __shfl_down_sync(0xffffffffu, m.mean, off),
+                    __shfl_down_sync(0xffffffffu, m.m2, off)};
+    m = merge(m, o);
+  }
+  return m;
+}
+
+// The rows [r0, r1) of group g's column that block s takes.
+__device__ __forceinline__ void norm_rows(int M, int rows_per_block,
+                                          int& r0, int& r1) {
+  r0 = blockIdx.y * rows_per_block;
+  r1 = min(M, r0 + rows_per_block);
+}
+
+template <typename Real>
+__global__ void __launch_bounds__(NORM_THREADS) adv_norm_partials_kernel(
+    const Real* __restrict__ data, int M, int rows_per_block,
+    Moments* __restrict__ partial, double* __restrict__ shift) {
+  int r0, r1;
+  norm_rows(M, rows_per_block, r0, r1);
+  const Real* col = data + (size_t)blockIdx.x * M * NCOL + ADV;
+  const double k0 = (double)col[0];
+  if (blockIdx.y == 0 && threadIdx.x == 0) shift[blockIdx.x] = k0;
+  Moments m{0.0, 0.0, 0.0};
+  for (int base = r0 + threadIdx.x; base < r1;
+       base += NORM_ITEMS * NORM_THREADS) {
+    double x[NORM_ITEMS];
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < NORM_ITEMS; ++k) {
+      const int r = base + k * NORM_THREADS;
+      x[k] = r < r1 ? (double)col[(size_t)r * NCOL] - k0 : 0.0;
+      c += r < r1;
+    }
+    double s = 0.0;
+#pragma unroll
+    for (int k = 0; k < NORM_ITEMS; ++k) s += x[k];
+    const double mean = s / c;
+    double m2 = 0.0;
+#pragma unroll
+    for (int k = 0; k < NORM_ITEMS; ++k) {
+      const double d = x[k] - mean;
+      if (k < c) m2 += d * d;
+    }
+    m = merge(m, Moments{(double)c, mean, m2});
+  }
+  __shared__ Moments warps[NORM_THREADS / 32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  m = warp_merge(m);
+  if (lane == 0) warps[w] = m;
+  __syncthreads();
+  if (w == 0) {
+    m = warp_merge(lane < NORM_THREADS / 32 ? warps[lane]
+                                            : Moments{0.0, 0.0, 0.0});
+    if (lane == 0) partial[(size_t)blockIdx.x * gridDim.y + blockIdx.y] = m;
+  }
+}
+
+template <typename Real>
+__global__ void __launch_bounds__(NORM_THREADS) adv_norm_apply_kernel(
+    Real* __restrict__ data, int M, int rows_per_block,
+    const Moments* __restrict__ partial, const double* __restrict__ shift,
+    Real* __restrict__ stats) {
+  __shared__ Real ms[2];
+  const int g = blockIdx.x;
+  if (threadIdx.x < 32) {
+    const Moments m = warp_merge(
+        threadIdx.x < gridDim.y
+            ? partial[(size_t)g * gridDim.y + threadIdx.x]
+            : Moments{0.0, 0.0, 0.0});
+    if (threadIdx.x == 0) {
+      ms[0] = (Real)(shift[g] + m.mean);
+      ms[1] = (Real)sqrt(m.m2 / m.n);
+      if (blockIdx.y == 0) {
+        stats[2 * g] = ms[0];
+        stats[2 * g + 1] = ms[1];
+      }
+    }
+  }
+  __syncthreads();
+  const Real mean = ms[0], den = ms[1] + (Real)1e-8;
+  int r0, r1;
+  norm_rows(M, rows_per_block, r0, r1);
+  Real* col = data + (size_t)g * M * NCOL + ADV;
+  for (int base = r0 + threadIdx.x; base < r1;
+       base += NORM_ITEMS * NORM_THREADS) {
+    Real x[NORM_ITEMS];
+#pragma unroll
+    for (int k = 0; k < NORM_ITEMS; ++k) {
+      const int r = base + k * NORM_THREADS;
+      if (r < r1) x[k] = col[(size_t)r * NCOL];
+    }
+#pragma unroll
+    for (int k = 0; k < NORM_ITEMS; ++k) {
+      const int r = base + k * NORM_THREADS;
+      if (r < r1) col[(size_t)r * NCOL] = (x[k] - mean) / den;
+    }
+  }
+}
+
+// Blocks a group: enough to give the card NORM_WAVE blocks an SM over all
+// groups, at most NORM_MAX_SPLIT and at most a group's row chunks.  The SM
+// count is read once a device, by the first (eager) launch, so a graph's
+// capture makes no query.
+int norm_split(int groups, int M, int& split) {
+  constexpr int MAX_DEVICES = 64;
+  static int sm_count[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int sms = dev < MAX_DEVICES ? sm_count[dev] : 0;
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES) sm_count[dev] = sms;
+  }
+  const int chunks = (M + NORM_ITEMS * NORM_THREADS - 1)
+                   / (NORM_ITEMS * NORM_THREADS);
+  const int fill = (NORM_WAVE * sms + groups - 1) / groups;
+  split = std::max(1, std::min({NORM_MAX_SPLIT, fill, chunks}));
+  return 0;
+}
+
+template <typename Real>
+int adv_norm(Real* data, int groups, int M, double* scratch, Real* stats,
+             cudaStream_t st) {
+  int split = 1;
+  const int err = norm_split(groups, M, split);
+  if (err != 0) return err;
+  const int rows_per_block = (M + split - 1) / split;
+  const dim3 grid(groups, split);
+  Moments* partial = reinterpret_cast<Moments*>(scratch);
+  double* shift = scratch + (size_t)groups * NORM_MAX_SPLIT * 3;
+  adv_norm_partials_kernel<Real><<<grid, NORM_THREADS, 0, st>>>(
+      data, M, rows_per_block, partial, shift);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  adv_norm_apply_kernel<Real><<<grid, NORM_THREADS, 0, st>>>(
+      data, M, rows_per_block, partial, shift, stats);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1135,6 +1344,23 @@ int acas_ppo_grads(float inv_n, float eps, float lo, float hi,
   grad_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(
       partial, P, nblocks, ent_coef, grads, sums);
   return (int)cudaGetLastError();
+}
+
+// Scratch float64s the wrapper allocates for the normalisation: the most
+// a launch over `groups` groups uses (its partials, then its shifts).
+long long acas_adv_norm_partial_doubles(int groups) {
+  return (long long)groups * (NORM_MAX_SPLIT * 3 + 1);
+}
+
+// Normalises column 11 of each of `groups` row-major (M, 13) groups of
+// `data` (float64 if f64 != 0, else float32) over its M rows, in place;
+// stats (groups, 2) gets each group's mean and std.  Two launches.  Returns
+// the launches' cudaGetLastError().
+int acas_adv_norm(void* data, int groups, int M, int f64, double* partial,
+                  void* stats, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return f64 ? adv_norm((double*)data, groups, M, partial, (double*)stats, st)
+             : adv_norm((float*)data, groups, M, partial, (float*)stats, st);
 }
 
 }  // extern "C"

@@ -10,7 +10,10 @@ clip band test is strict (`in_band`), min() selects the unclipped branch
 inside the band and where clipping would have helped (`sel`), the log-std
 gradient is straight-through its clamp, and the loss's `-ent_coef * entropy`
 term adds `-ent_coef` to it.  SB3's per-minibatch advantage normalisation
-runs before the kernel (`normalize_adv_column`).
+runs before the kernel: the learner normalises every minibatch of an epoch
+at once (`normalize_adv_minibatches`, a kernel of its own in the same
+library), and a direct call normalises its minibatch itself
+(`normalize_adv_column`).
 
 `bf16=True` is the JAX kernel's bf16 variant (`pallas_update.py:109-127`,
 `PPOConfig.fused_update_bf16`): the two operands of each of its eight
@@ -73,12 +76,76 @@ def normalize_adv_column(mb_data: torch.Tensor) -> torch.Tensor:
     """SB3's per-minibatch advantage normalisation on the packed matrix's
     advantage column (pallas_update.py:290-297), over the rows of each
     (..., N, 13) minibatch: per member for a population's (P, N, 13).  The
-    std is the population std (ddof 0), as `jnp.std`."""
-    adv = mb_data[..., _ADV]
+    std is the population std (ddof 0), as `jnp.std`.  Returns a copy."""
     out = mb_data.clone()
-    out[..., _ADV] = ((adv - adv.mean(-1, keepdim=True))
-                      / (adv.std(-1, correction=0, keepdim=True) + 1e-8))
+    _normalize_plain(out)
     return out
+
+
+def _normalize_plain(mbs: torch.Tensor) -> torch.Tensor:
+    """`normalize_adv_column`'s torch ops in place on (..., M, 13), a
+    (P, M, 13) minibatch step's slice at a time: each reduction keeps the
+    shape a step gave it, since torch's CPU std of one float64 row sums in
+    another order than that of several (up to 15 ulps apart).  Returns the
+    (..., 2) means and stds."""
+    if mbs.dim() > 3:
+        return torch.stack([_normalize_plain(mb) for mb in mbs])
+    adv = mbs[..., _ADV]
+    mean = adv.mean(-1, keepdim=True)
+    std = adv.std(-1, correction=0, keepdim=True)
+    mbs[..., _ADV] = (adv - mean) / (std + 1e-8)
+    return torch.cat([mean, std], -1)
+
+
+def _normalize_cuda(mbs: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/ppo_grads.cu's advantage normalisation (two passes) on
+    the contiguous (..., M, 13) float32 or float64 `mbs`, in place; returns
+    the (..., 2) means and stds."""
+    if mbs.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"minibatches must be float32 or float64, got "
+                         f"{mbs.dtype}")
+    lead, M = tuple(mbs.shape[:-2]), mbs.shape[-2]
+    _cuda.require(mbs, "minibatches", mbs.dtype, lead + (M, N_COLS))
+    groups = math.prod(lead)
+    lib = _cuda.load("ppo_grads")
+    lib.acas_adv_norm_partial_doubles.restype = ctypes.c_longlong
+    lib.acas_adv_norm_partial_doubles.argtypes = [ctypes.c_int]
+    fn = lib.acas_adv_norm
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 3)
+    partial = torch.empty(lib.acas_adv_norm_partial_doubles(groups),
+                          dtype=torch.float64, device=mbs.device)
+    stats = torch.empty(lead + (2,), dtype=mbs.dtype, device=mbs.device)
+    rc = fn(_cuda.ptr(mbs), groups, M, int(mbs.dtype == torch.float64),
+            _cuda.ptr(partial), _cuda.ptr(stats), _cuda.stream_of(mbs))
+    _cuda.check(rc, lib, "adv_norm launch")
+    normalize_adv_minibatches.launches += 2
+    return stats
+
+
+def normalize_adv_minibatches(mbs: torch.Tensor) -> torch.Tensor:
+    """SB3's advantage normalisation of every minibatch of an epoch at once,
+    in place: the advantage column of each (M, 13) minibatch of `mbs`
+    (..., M, 13), the epoch's packed (n_minibatches, P, M, 13) copy, over
+    its M rows, as `normalize_adv_column` normalises one (ddof 0,
+    (adv - mean) / (std + 1e-8)).  Returns the (..., 2) means and stds.
+
+    CUDA tensors (contiguous, float32 or float64) launch csrc/ppo_grads.cu's
+    two passes, whose statistics are float64 merges rounded once;
+    `normalize_adv_minibatches.launches` counts the launches.  CPU tensors
+    run `normalize_adv_column`'s torch ops, a minibatch step's slice at a
+    time, bit for bit what each step computed itself.  There is no
+    fallback between the two."""
+    if mbs.dim() < 2 or mbs.shape[-1] != N_COLS or not mbs.numel():
+        raise ValueError(f"minibatches must be a non-empty (..., M, "
+                         f"{N_COLS}), got {tuple(mbs.shape)}")
+    if mbs.is_cuda:
+        return _normalize_cuda(mbs)
+    return _normalize_plain(mbs)
+
+
+normalize_adv_minibatches.launches = 0
 
 
 def _constants(n: int, clip_range: float, vf_coef: float):

@@ -19,7 +19,8 @@ The update (`ppo_update_members`), the unfused rollout
 which is 1 for solo training and P for a population (ppo/population.py).
 Optimisation semantics replicate SB3 PPO as the JAX package does: raw
 gaussian samples keep their log-probs while the env receives clipped
-actions; advantages are normalised per minibatch; value loss is unclipped
+actions; advantages are normalised per minibatch (every minibatch of an
+epoch at once, `ppo_update_members`); value loss is unclipped
 MSE; global-norm clipping at max_grad_norm, then Adam — both written out to
 reproduce optax's `clip_by_global_norm` and `adam` step for step.
 
@@ -74,6 +75,7 @@ from acas2d_tpu_torch.ops import step_math as sm
 from acas2d_tpu_torch.ops.policy_rollout import (fused_policy_rollout,
                                                  seed_int32)
 from acas2d_tpu_torch.ops.ppo_grads import (normalize_adv_column,
+                                            normalize_adv_minibatches,
                                             ppo_minibatch_grads_members)
 from acas2d_tpu_torch.parallel import mesh as mesh_lib
 from acas2d_tpu_torch.parallel.mesh import (Mesh, all_gather_rows,
@@ -646,7 +648,13 @@ def minibatch_grads_fn(cfg: PPOConfig, mesh: Optional[Mesh] = None
     step does not normalise.  A mesh of one process keeps the
     single-process step, which normalises in the kernel or the loss.
     Refuses the fused update when a rank's rows are not a multiple of 128,
-    as JAX does."""
+    as JAX does.
+
+    The update (`ppo_update_members`) normalises each epoch's minibatches
+    at once, before its steps, so the grads function it takes receives
+    normalised minibatches: it builds this one from `stepwise_config(cfg)`,
+    whose steps normalise nothing.  Every rank holds the whole gathered
+    batch, so each minibatch is still normalised whole."""
     def local(params, mb, normalize):
         if cfg.fused_update:
             return ppo_minibatch_grads_members(
@@ -685,6 +693,13 @@ def minibatch_grads_fn(cfg: PPOConfig, mesh: Optional[Mesh] = None
     return sharded
 
 
+def stepwise_config(cfg: PPOConfig) -> PPOConfig:
+    """The config a minibatch step of `ppo_update_members` runs under:
+    cfg with no advantage normalisation, which the update has done for the
+    whole epoch before the step."""
+    return dataclasses.replace(cfg, normalize_advantage=False)
+
+
 def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
                        optimizer: Optimizer, data: torch.Tensor,
                        cfg: PPOConfig, perms,
@@ -705,9 +720,15 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
     from the Adam count.  Under cfg.fused_update every minibatch step of
     all members is one launch of the gradient kernel, with bf16 operands
     under cfg.fused_update_bf16; else its gradients come from autograd
-    (`ppo_loss_grads`).  `grads_fn` (`minibatch_grads_fn`, by default that
-    of one process) takes the steps' gradients.  Metrics are (P,) means
-    over the steps."""
+    (`ppo_loss_grads`).  `grads_fn` (`minibatch_grads_fn` of
+    `stepwise_config(cfg)`, by default that of one process) takes the
+    steps' gradients.  Metrics are (P,) means over the steps.
+
+    Each epoch gathers its private copy minibatch-major, (n_minibatches,
+    P, M, 13), so that every step's (P, M, 13) slice is contiguous; under
+    cfg.normalize_advantage `normalize_adv_minibatches` then normalises
+    every minibatch of every member in place, once an epoch, and
+    `grads_fn` receives normalised minibatches."""
     P, N = data.shape[:2]
     block = cfg.shuffle_block
     n_blocks = N // block
@@ -717,17 +738,23 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
             opt_state.count, cfg.n_epochs * cfg.n_minibatches,
             params.dtype).to(data.device)
     if grads_fn is None:
-        grads_fn = minibatch_grads_fn(cfg)
+        grads_fn = minibatch_grads_fn(stepwise_config(cfg))
+    n_mb = cfg.n_minibatches
     blocks = data.view(P, n_blocks, block, data.shape[-1])
     members = torch.arange(P, device=data.device)[:, None]
     aux_all: Dict[str, List[torch.Tensor]] = {}
     for epoch in range(cfg.n_epochs):
-        mbs = blocks[members, perms[epoch]].view(
-            P, cfg.n_minibatches, cfg.minibatch_size, data.shape[-1])
-        for j in range(cfg.n_minibatches):
-            grads, aux = grads_fn(params, mbs[:, j])
+        # a contiguous index lays the gathered copy out in its order
+        order = perms[epoch].view(P, n_mb, n_blocks // n_mb).transpose(
+            0, 1).contiguous()
+        mbs = blocks[members, order].view(
+            n_mb, P, cfg.minibatch_size, data.shape[-1])
+        if cfg.normalize_advantage:
+            normalize_adv_minibatches(mbs)
+        for j in range(n_mb):
+            grads, aux = grads_fn(params, mbs[j])
             updates, opt_state = optimizer.update(
-                grads, opt_state, scalars[epoch * cfg.n_minibatches + j])
+                grads, opt_state, scalars[epoch * n_mb + j])
             params = params + updates
             for k, v in aux.items():
                 aux_all.setdefault(k, []).append(v)
@@ -917,7 +944,7 @@ def _solo_iteration(cfg: PPOConfig, env_params: EnvParams,
     optimizer = Optimizer(cfg)
     if mesh is not None and not mesh.distributed:
         mesh = None
-    grads_fn = minibatch_grads_fn(cfg, mesh)
+    grads_fn = minibatch_grads_fn(stepwise_config(cfg), mesh)
     first = env_rows(cfg.n_envs, mesh).start if mesh is not None else 0
 
     def iteration(state: TrainState, seed, perms, scalars, mark,
@@ -1059,7 +1086,8 @@ def _with_leaves(state, leaves: Sequence[torch.Tensor], iterations: int,
 
 # the kernels a training iteration launches, whose counters a replay adds to
 KERNELS = {"policy_rollout": policy_rollout.fused_policy_rollout_members,
-           "ppo_grads": ppo_grads.ppo_minibatch_grads_members}
+           "ppo_grads": ppo_grads.ppo_minibatch_grads_members,
+           "adv_norm": ppo_grads.normalize_adv_minibatches}
 _COUNTERS = tuple(KERNELS.values())
 
 

@@ -28,17 +28,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      (`--fused-rollout --fused-update`, SOLO_ARGV) at the full `tpu` preset
      shape (2048 x 128, minibatch 65,536, 10 epochs) for 3 iterations, one
      eager iteration a call (--iters-per-call 1), with the launch counters
-     read around it (8 rollout and 40 gradient launches per iteration) and
-     every metric finite; then one more iteration of the learner's step cut
-     into rollout / GAE / update by its phase hook;
+     read around it (8 rollout, 40 gradient and 20 advantage-normalisation
+     launches per iteration) and every metric finite; then one more
+     iteration of the learner's step cut into rollout / GAE / update by its
+     phase hook;
   5. the population main path: the shipped pipeline's command
      (scripts/population_pipeline.sh) for 3 iterations, one a call
      (--iters-per-call 1; --population 32
      --n-envs 1024 --minibatch-size 32768 --anneal-lr --fused-rollout
      --fused-update-packed --eval-episodes 32), with the re-eval cut from
      512 to 64 episodes and one polish round of one iteration at
-     --polish-pop 16; the launch counters read around it (8 rollout and 40
-     gradient launches per iteration, whatever P is), every metric finite,
+     --polish-pop 16; the launch counters read around it (8 rollout, 40
+     gradient and 20 normalisation launches per iteration, whatever P
+     is), every metric finite,
      the selected policy through the port's exact eval (finite, no score
      gate); then one more population iteration cut into rollout / GAE /
      update;
@@ -166,7 +168,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      `export_parity_artifacts` (the exported best params the best
      checkpoint's) and `export_population_artifacts` of (c)'s run (its
      strict record the strict eval's), into a temporary directory; (e)
-     `bench --train --fused off`: the `xla` row alone, no kernel launch.
+     `bench --train --fused off`: the `xla` row alone, no kernel launch;
+ 20. the epoch's advantage normalisation (`normalize_adv_minibatches`, two
+     launches an epoch) at the packed epoch copies of the solo preset (4
+     minibatches of 65,536 rows), of 32,768 envs (64 of 65,536: every rank
+     of BASELINE config 4 holds them all) and of the pipeline (4 x 32
+     members x 32,768), one minibatch cancelling (mean 1e4, std 1e-2) and
+     one constant: each advantage within ADV_NORM_ULPS and each mean and
+     std within ADV_STATS_ULPS of the float64 yardstick, the other columns
+     untouched, two launches bit for bit; its time an epoch, its byte
+     bound, its plain version's time and that of the per-step chain of
+     torch ops it replaces.  `python3 chip_smoke.py --adv-norm` builds the
+     kernels and runs this phase alone.
 `python3 chip_smoke.py --cards W` (W >= 2 cards of one host) builds the
 kernels and runs phase 17 across the cards instead: the dryrun on W ranks
 over NCCL (2048 / W envs and 32 / W members a rank) held as in (b); the
@@ -614,11 +627,15 @@ def phase_main_path():
         argv = SOLO_ARGV + ["--total-steps", str(ITERS * SOLO_B * 128),
                 "--iters-per-call", "1", "--out-dir", out]
         reset_counts()
+        norm0 = ppo_grads.normalize_adv_minibatches.launches
         rows = train.run(train.parse_args(argv))
         launches = read_counts()
+        launches["adv_norm"] = (ppo_grads.normalize_adv_minibatches.launches
+                                - norm0)
     print(f"[main] launches over {ITERS} iterations: {launches}")
-    check(launches == expected(policy_rollout=8 * ITERS,
-                               ppo_grads=40 * ITERS))
+    check(launches == {**expected(policy_rollout=8 * ITERS,
+                                  ppo_grads=40 * ITERS),
+                       "adv_norm": 20 * ITERS})
     check_finite(rows)
     steady = [r["steps_per_s"] for r in rows[1:]]
     it_s = [r["seconds"] for r in rows[1:]]
@@ -670,16 +687,20 @@ def phase_population():
         argv = POP_ARGV + ["--iters-per-call", "1", "--out-dir", out,
                            "--run-name", "pop"]
         reset_counts()
+        norm0 = ppo_grads.normalize_adv_minibatches.launches
         t0 = time.perf_counter()
         rows = train.run(train.parse_args(argv))
         wall = time.perf_counter() - t0
         launches = read_counts()
+        launches["adv_norm"] = (ppo_grads.normalize_adv_minibatches.launches
+                                - norm0)
         iters = ITERS + 1                          # + the polish iteration
         print(f"[population] launches over {iters} iterations "
               f"({ITERS} at P={POP}, 1 at P={POLISH_POP}): {launches}")
         check(len(rows) == iters, f"{len(rows)} rows")
-        check(launches == expected(policy_rollout=8 * iters,
-                                   ppo_grads=40 * iters))
+        check(launches == {**expected(policy_rollout=8 * iters,
+                                      ppo_grads=40 * iters),
+                           "adv_norm": 20 * iters})
         check_finite(rows)
         for r in rows:
             evals = (f", eval_return_max {r['eval_return_max']:.2f}"
@@ -1398,7 +1419,8 @@ def phase_world_of_one():
             runs[name] = (rows, summary, ckpt, ms)
             check(len(rows) == W1_ITERS, f"{name}: {len(rows)} rows")
             check(summary["launches"] == {"policy_rollout": 8 * W1_ITERS,
-                                          "ppo_grads": 40 * W1_ITERS},
+                                          "ppo_grads": 40 * W1_ITERS,
+                                          "adv_norm": 20 * W1_ITERS},
                   f"{name}: launches {summary['launches']}")
             check(summary["iters_per_call"] == W1_K)
         check(runs["nccl"][1]["process_group"] == "nccl"
@@ -1498,12 +1520,14 @@ def check_dryrun(out, W, tag):
                          weights_only=False)
         check(got["sharded"] and got["world"] == W)
         fr, fu, members = dryrun.VARIANTS[variant]
-        want = torch.tensor([[8 * iters * fr, 40 * iters * fu]] * W)
+        want = torch.tensor([[8 * iters * fr, 40 * iters * fu,
+                              20 * iters]] * W)
         check(torch.equal(got["launches"], want),
               f"{variant}: launches by rank {got['launches'].tolist()}")
         check_finite([{k: v.cpu().numpy() for k, v in m.items()}
                       for m in got["metrics"]])
-        print(f"[{tag}] {variant}: launches by rank (rollout, gradient) "
+        print(f"[{tag}] {variant}: launches by rank (rollout, gradient, "
+              f"normalisation) "
               f"{got['launches'].tolist()}")
         if variant in SHARDED_TOL:
             atol, rtol = SHARDED_TOL[variant]
@@ -1944,7 +1968,8 @@ def phase_across_cards(W):
             check_finite(rows)
             check(summary["launches"] == {
                 "policy_rollout": 8 * CARDS_ITERS,
-                "ppo_grads": 40 * CARDS_ITERS},
+                "ppo_grads": 40 * CARDS_ITERS,
+                "adv_norm": 20 * CARDS_ITERS},
                   f"{name} on {w or 1} cards: launches {summary['launches']}")
             check(summary["n_devices"] == (w or 1))
             got[w] = ms
@@ -1953,6 +1978,123 @@ def phase_across_cards(W):
               f"{got[W]:.2f}, on one {got[0]:.2f}: {got[0] / got[W]:.3f}x; "
               f"launches a rank {8 * CARDS_ITERS} / {40 * CARDS_ITERS}")
     run_scaling(W)
+
+
+# ----------------------------------------------------------------- phase 20
+
+# The epoch's packed copy at each training main path's shape: (minibatches,
+# members, rows a minibatch).  solo32k: BASELINE config 4's 32,768 envs x
+# 128 steps, the whole gathered batch that every rank holds.
+ADV_NORM_SHAPES = {"solo": (4, 1, SOLO_N), "solo32k": (64, 1, SOLO_N),
+                   "members": (4, POP, POP_N)}
+#  the kernel against `adv_norm_float64` (float64 statistics rounded once):
+#  each normalised advantage, and each mean and std, in float32 ulps of the
+#  yardstick's value
+ADV_NORM_ULPS, ADV_STATS_ULPS = 4, 2
+#  a row's advantage sits in a 32-byte sector of its own: one sector read
+#  by each of the two passes, one written back
+ADV_NORM_ROW_BYTES = 96
+
+
+def adv_norm_inputs(dev, shape, dtype=torch.float32, seed=11):
+    """A packed epoch copy of `shape` (minibatches, members, rows) with
+    GAE-like advantages; the first minibatch of the first member holds a
+    cancelling column (mean 1e4, std 1e-2), the last a constant one."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(*shape, 13, generator=gen, dtype=torch.float64)
+    x[..., 11] = x[..., 11] * 2.0 + 0.3
+    x[0, 0, :, 11] = 1e4 + torch.randn(shape[2], generator=gen,
+                                       dtype=torch.float64) * 1e-2
+    x[-1, -1, :, 11] = 3.0
+    return x.to(dev, dtype)
+
+
+def adv_norm_float64(x):
+    """The yardstick of the normalisation of float32 `x` (..., M, 13): each
+    minibatch's mean and std in float64, rounded once to float32, then
+    `normalize_adv_column`'s float32 arithmetic.  Returns (the normalised
+    (..., M) column, the (..., 2) means and stds)."""
+    adv = x[..., 11]
+    wide = adv.to(torch.float64)
+    stats = torch.cat([wide.mean(-1, keepdim=True),
+                       wide.std(-1, correction=0, keepdim=True)],
+                      -1).to(adv.dtype)
+    return (adv - stats[..., :1]) / (stats[..., 1:] + 1e-8), stats
+
+
+def ulp_gap(got, want):
+    """The largest |got - want| in float32 ulps of `want`'s magnitude."""
+    w = want.abs()
+    spacing = torch.nextafter(w, torch.full_like(w, math.inf)) - w
+    return float(((got - want).abs() / spacing).max())
+
+
+def adv_norm_errors(x):
+    """(ulps of the normalised advantages, ulps of the means and stds) of
+    the kernel on a copy of `x` against `adv_norm_float64`; the other
+    columns must be untouched, the constant column 0 and two launches
+    equal bit for bit."""
+    want, want_stats = adv_norm_float64(x)
+    got = x.clone()
+    stats = ppo_grads.normalize_adv_minibatches(got)
+    again = x.clone()
+    ppo_grads.normalize_adv_minibatches(again)
+    check(torch.equal(got, again), "two launches differ")
+    others = [c for c in range(13) if c != 11]
+    check(torch.equal(got[..., others], x[..., others]),
+          "the normalisation wrote outside the advantage column")
+    check(bool((got[-1, -1, :, 11] == 0).all()), "constant column not 0")
+    return ulp_gap(got[..., 11], want), ulp_gap(stats, want_stats)
+
+
+def graph_ms(fn, n: int) -> float:
+    """ms a call of `fn` (warmed) as a replayed CUDA graph of n calls."""
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    n0 = ppo_grads.normalize_adv_minibatches.launches
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ppo_grads.normalize_adv_minibatches.launches = n0
+    return cuda_time_ms(graph.replay, 10) / n
+
+
+def time_adv_norm(x):
+    """(kernel ms, plain ms, (bound ms, by)) of one epoch's normalisation of
+    `x`, and the ms of the per-step chain it replaces, each as a replayed
+    CUDA graph, as a training iteration replays them (eager, the host's
+    launch cost would set the times at solo's size)."""
+    nmb, P, M = x.shape[:3]
+    y = x.clone()
+    ms = graph_ms(lambda: ppo_grads.normalize_adv_minibatches(y), 20)
+    plain_ms = graph_ms(lambda: ppo_grads._normalize_plain(y), 2)
+    chain_ms = graph_ms(lambda: [ppo_grads.normalize_adv_column(y[j])
+                                 for j in range(nmb)], 2)
+    n_bytes = ADV_NORM_ROW_BYTES * nmb * P * M
+    return ms, plain_ms, bound_ops(n_bytes, {"f32": 4 * nmb * P * M}), chain_ms
+
+
+def phase_adv_norm(dev):
+    """The epoch's advantage normalisation (`normalize_adv_minibatches`)
+    against its float64 yardstick at each main path's shape, timed beside
+    its plain version and the per-step chain of torch ops it replaces.
+    Returns {shape name: (inputs, largest error in ulps)}."""
+    out = {}
+    for name, shape in ADV_NORM_SHAPES.items():
+        x = adv_norm_inputs(dev, shape)
+        n0 = ppo_grads.normalize_adv_minibatches.launches
+        err, stats_err = adv_norm_errors(x)
+        check(ppo_grads.normalize_adv_minibatches.launches == n0 + 4)
+        check(err <= ADV_NORM_ULPS and stats_err <= ADV_STATS_ULPS,
+              f"adv_norm {name}: {err} ulps (means and stds {stats_err})")
+        ms, plain_ms, (b_ms, b_by), chain_ms = time_adv_norm(x)
+        print(f"[adv_norm] {name} {tuple(shape)}: {err:.1f} ulps (means and "
+              f"stds {stats_err:.1f}); {ms:.4f} ms an epoch, bound "
+              f"{b_ms:.4f} ms by {b_by} ({ms / b_ms:.1f}x); plain "
+              f"{plain_ms:.4f} ms; the per-step chain it replaces "
+              f"{chain_ms:.4f} ms ({shape[0]} x normalize_adv_column)")
+        out[name] = (x, err)
+    return out
 
 
 # ------------------------------------------------------------------ phase 7
@@ -2540,6 +2682,10 @@ def main(argv=None) -> int:
         phase_across_cards(cards)
         print_device_lines()
         return 0
+    if argv[:1] == ["--adv-norm"]:
+        phase_adv_norm(dev)
+        print_device_lines()
+        return 0
     roll = {"solo": phase_rollout(dev, 1, SOLO_B),
             "members": phase_rollout(dev, POP, POP_B)}
     grads = {"solo": phase_grads(dev, 1, SOLO_N),
@@ -2570,6 +2716,7 @@ def main(argv=None) -> int:
     phase_multi_process()
     phase_host_surface()
     roll8, grads8, sub_launches = phase_last_modules(dev, eval_res)
+    adv_norm = phase_adv_norm(dev)
     cu, pt = "acas2d_tpu_torch/csrc/", "acas2d_tpu/ops/"
     rows = [
         ("policy_rollout", time_rollout,
@@ -2606,6 +2753,12 @@ def main(argv=None) -> int:
         ("precision_probe", time_probe, probe_args, probe_err,
          probe_launches, cu + "precision_probe.cu",
          "scripts/pallas_tpu_check.py:244"),
+    ] + [
+        (f"adv_norm_{name}", lambda x: time_adv_norm(x)[:3], x, err,
+         solo_launches["adv_norm"] if name == "solo" else
+         pop_launches["adv_norm"] if name == "members" else None,
+         cu + "ppo_grads.cu", "none (jnp: " + pt + "pallas_update.py:290)")
+        for name, (x, err) in adv_norm.items()
     ]
     bf16_phases = bf16_launches[2]
     kernels = phase_timing(

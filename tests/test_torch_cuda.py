@@ -300,6 +300,74 @@ def test_member_grads_p1_equals_the_solo_launch(cuda):
         assert torch.equal(v, auxm[k][0]), k
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1, 65536), (64, 1, 65536),
+                                   (4, 32, 32768), (3, 2, 1000)],
+                         ids=["solo_tpu", "solo32k", "pop32", "odd"])
+def test_adv_norm_kernel_matches_float64(cuda, shape):
+    """The epoch's normalisation at each training cell's shape
+    (chip_smoke.py phase 20): every advantage within 4 ulps, and every
+    mean and std within 2 ulps, of the float64 statistics rounded once; a
+    cancelling column (mean 1e4, std 1e-2) and a constant one (0 / 1e-8)
+    included; the other columns untouched; two launches bit for bit."""
+    import chip_smoke
+    x = chip_smoke.adv_norm_inputs(cuda, shape)
+    n0 = ppo_grads.normalize_adv_minibatches.launches
+    err, stats_err = chip_smoke.adv_norm_errors(x)
+    torch.cuda.synchronize()
+    assert ppo_grads.normalize_adv_minibatches.launches == n0 + 4
+    assert err <= chip_smoke.ADV_NORM_ULPS == 4
+    assert stats_err <= chip_smoke.ADV_STATS_ULPS == 2
+
+
+@pytest.mark.cuda
+def test_adv_norm_kernel_in_float64_matches_two_passes(cuda):
+    """float64 epochs (the unfused float64 update on the card) against
+    two passes on the CPU, the mean and then the squares about it: the
+    means and stds within 1e-12 of their size, each advantage within
+    1e-9 (the cancelling column's x - mean carries 1e4 x 2^-52 over a std
+    of 1e-2); the other columns untouched."""
+    import chip_smoke
+    x = chip_smoke.adv_norm_inputs(cuda, (4, 3, 5000), torch.float64)
+    got = x.clone()
+    stats = ppo_grads.normalize_adv_minibatches(got).cpu()
+    adv = x[..., 11].cpu()
+    mean = adv.mean(-1, keepdim=True)
+    std = ((adv - mean) ** 2).mean(-1, keepdim=True).sqrt()
+    assert torch.allclose(stats, torch.cat([mean, std], -1), rtol=1e-12,
+                          atol=0)
+    want = (adv - mean) / (std + 1e-8)
+    assert (got[..., 11].cpu() - want).abs().max() < 1e-9
+    assert torch.equal(got[..., :11], x[..., :11])
+
+
+@pytest.mark.cuda
+def test_adv_norm_kernel_replays_in_a_graph_and_counts(cuda):
+    """Captured in a CUDA graph, each replay normalises the static input as
+    an eager launch does; the capture counts its two launches, as a
+    replayed training iteration counts them (`learner.KERNELS`)."""
+    import chip_smoke
+    x = chip_smoke.adv_norm_inputs(cuda, (4, 2, 8192))
+    eager = x.clone()
+    ppo_grads.normalize_adv_minibatches(eager)
+    static = x.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    n0 = ppo_grads.normalize_adv_minibatches.launches
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        ppo_grads.normalize_adv_minibatches(static)
+    torch.cuda.current_stream().wait_stream(stream)
+    assert ppo_grads.normalize_adv_minibatches.launches == n0 + 2
+    assert "adv_norm" in learner.KERNELS
+    for _ in range(2):
+        static.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static, eager)
+
+
 def _env_state(B, dev, seed=5):
     """Fresh spawns with part-way step counters, so that timeouts respawn
     inside a short launch."""
@@ -587,6 +655,8 @@ def test_replayed_iterations_equal_eager_steps(cuda, pop, bf16, flags,
     bit: params, Adam moments and count, env state, obs, every metric and
     the generators.  The launch counters go up by K x 2 rollout and K x 8
     gradient launches a call where those paths are fused, else by none,
+    and by K x 4 advantage-normalisation launches (two an epoch) on every
+    path,
     and no op inside the capture takes a tensor from the host (the
     unfused rollout's draws are made on the card from the seed; its
     autograd update is captured with it)."""
@@ -605,13 +675,14 @@ def test_replayed_iterations_equal_eager_steps(cuda, pop, bf16, flags,
     monkeypatch.setattr(learner._IterationGraph, "captured", captured)
     b, calls = init(), []
     counters = (policy_rollout.fused_policy_rollout_members,
-                ppo_grads.ppo_minibatch_grads_members)
+                ppo_grads.ppo_minibatch_grads_members,
+                ppo_grads.normalize_adv_minibatches)
     for _ in range(2):
         n0 = [c.launches for c in counters]
         b, m = loop(b)
         torch.cuda.synchronize()
         assert [c.launches - n for c, n in zip(counters, n0)] == [
-            6 * cfg.fused_rollout, 24 * cfg.fused_update]
+            6 * cfg.fused_rollout, 24 * cfg.fused_update, 12]
         calls.append(m)
     assert guard.seen == []
     assert b.iteration == a.iteration == 6
@@ -750,6 +821,14 @@ def test_kernel_wrappers_check_operands():
     gargs = list(_grad_args(64, torch.device("cpu")))
     with pytest.raises(ValueError, match="CUDA"):
         ppo_grads._grads_cuda(*gargs)
+    n_norm = ppo_grads.normalize_adv_minibatches.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        ppo_grads._normalize_cuda(torch.zeros(2, 64, 13))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        ppo_grads._normalize_cuda(torch.zeros(2, 64, 13, dtype=torch.half))
+    with pytest.raises(ValueError, match=r"\(\.\.\., M, 13\)"):
+        ppo_grads.normalize_adv_minibatches(torch.zeros(2, 64, 12))
+    assert ppo_grads.normalize_adv_minibatches.launches == n_norm
     assert policy_rollout.fused_policy_rollout_members.launches == n0
     if torch.cuda.is_available():
         args[5] = args[5].cuda()

@@ -257,7 +257,8 @@ def test_summary_has_jax_keys(solo, population_straight):
                             | {"device", "launches", "process_group"})
     assert summary["population"] is None and summary["device"] == "cpu"
     assert summary["n_devices"] == 1 and summary["process_group"] is None
-    assert summary["launches"] == {"policy_rollout": 0, "ppo_grads": 0}
+    assert summary["launches"] == {"policy_rollout": 0, "ppo_grads": 0,
+                                   "adv_norm": 0}
     assert summary["global_step"] == summary["steps_this_process"] == 4 * B
     assert summary["iters_per_call"] == 1          # JAX's default on a CPU
     assert {"dispatch_s", "train_first_call_s", "train_step_s", "log_s",
