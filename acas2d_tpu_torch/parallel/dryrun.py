@@ -30,7 +30,6 @@ from typing import Dict, Tuple
 import torch
 
 from acas2d_tpu_torch.config import DEFAULT_PARAMS
-from acas2d_tpu_torch.models.actor_critic import ActorCritic
 from acas2d_tpu_torch.parallel import mesh as mesh_lib
 from acas2d_tpu_torch.ppo import learner, population
 from acas2d_tpu_torch.ppo.config import PPOConfig, tpu_default
@@ -103,12 +102,12 @@ def first_chunk(cfg: PPOConfig, pop: int, state, mesh: mesh_lib.Mesh,
     mesh = mesh if mesh.distributed else None
     one = dataclasses.replace(cfg, n_steps=cfg.fused_chunk)
     if pop:
-        _, batch, _, _ = population.collect_rollout_fused_members(
-            state, one, DEFAULT_PARAMS, seed)
+        batch = learner.rollout_members_fused(
+            state.params, state.env_state, state.obs, one, DEFAULT_PARAMS,
+            seed)[2]
     else:
         _, batch, _, _ = learner.collect_rollout_fused(
-            ActorCritic(device=seed.device), state, one, DEFAULT_PARAMS,
-            seed, mesh)
+            state, one, DEFAULT_PARAMS, seed, mesh)
     out = {f.name: getattr(batch, f.name).cpu()
            for f in dataclasses.fields(batch)}
     out["seed"] = int(seed.reshape(-1)[0])

@@ -14,9 +14,10 @@ Counterpart of `acas2d_tpu/ppo/learner.py` on all four of its paths, as
     and `fused_update_bf16` included); the unfused one differentiates
     `ppo_loss` with autograd (JAX's `jax.grad`).
 
-The update (`ppo_update_members`), the unfused rollout
-(`rollout_members`) and the optimizer work on a leading member axis,
-which is 1 for solo training and P for a population (ppo/population.py).
+Both rollouts (`rollout_members`, `rollout_members_fused`), the update
+(`ppo_update_members`) and the optimizer work on a leading member axis,
+which is 1 for solo training (`collect_rollout`, `collect_rollout_fused`,
+`ppo_update`) and P for a population (ppo/population.py).
 Optimisation semantics replicate SB3 PPO as the JAX package does: raw
 gaussian samples keep their log-probs while the env receives clipped
 actions; advantages are normalised per minibatch (every minibatch of an
@@ -72,10 +73,9 @@ from acas2d_tpu_torch.models.actor_critic import (
 from acas2d_tpu_torch.oracle import MersenneSpawner
 from acas2d_tpu_torch.ops import phase_mark, policy_rollout, ppo_grads
 from acas2d_tpu_torch.ops import step_math as sm
-from acas2d_tpu_torch.ops.policy_rollout import (fused_policy_rollout,
-                                                 seed_int32)
-from acas2d_tpu_torch.ops.ppo_grads import (normalize_adv_column,
-                                            normalize_adv_minibatches,
+from acas2d_tpu_torch.ops.policy_rollout import (
+    fused_policy_rollout, fused_policy_rollout_members, seed_int32)
+from acas2d_tpu_torch.ops.ppo_grads import (normalize_adv_minibatches,
                                             ppo_minibatch_grads_members)
 from acas2d_tpu_torch.parallel import mesh as mesh_lib
 from acas2d_tpu_torch.parallel.mesh import (Mesh, all_gather_rows,
@@ -316,58 +316,6 @@ def _state_shapes(state) -> Dict[str, int]:
 
 # ---------------------------------------------------------------- rollout
 
-def collect_rollout_fused(model: ActorCritic, state: TrainState,
-                          cfg: PPOConfig, env_params: EnvParams, seed,
-                          mesh: Optional[Mesh] = None
-                          ) -> Tuple[TrainState, RolloutBatch, torch.Tensor,
-                                     Dict[str, torch.Tensor]]:
-    """cfg.n_steps autoreset steps as n_steps / fused_chunk launches of the
-    fused rollout, one seed for all chunks (an int or a (1,) int32 tensor
-    on the state's device) and the step counter offset by chunk.  Returns
-    (state', batch, last_value, episode metrics).  With a `mesh`, the state
-    is this rank's rows of the env batch (the caller folds the rank into
-    the seed, `parallel.mesh.fold_seed`) and the metrics are the whole batch's: the
-    episode sums are added over the ranks before they are divided."""
-    K = cfg.fused_chunk
-    if cfg.n_steps % K:
-        raise ValueError(f"n_steps {cfg.n_steps} not divisible by "
-                         f"fused_chunk {K}")
-    es = state.env_state
-    flat = dict(px=es.px, py=es.py, psi=es.ppsi, tx=es.tx[:, 0],
-                ty=es.ty[:, 0], tv=es.tv[:, 0], tpsi=es.tpsi[:, 0],
-                steps=es.steps, total_reward=es.total_reward)
-    obs = state.obs
-    chunks = []
-    for idx in range(cfg.n_steps // K):
-        flat, buf = fused_policy_rollout(flat, obs, state.params, seed,
-                                         idx * K, K, env_params)
-        obs = flat.pop("obs")
-        pa_lat = flat.pop("pa_lat")
-        chunks.append(buf)
-    bufs = {k: torch.cat([b[k] for b in chunks]) for k in chunks[0]}
-
-    batch = RolloutBatch(
-        obs=bufs["obs"], actions=bufs["actions"][..., None],
-        log_probs=bufs["log_probs"], values=bufs["values"],
-        rewards=bufs["rewards"], dones=bufs["dones"] > 0)
-    with torch.no_grad():
-        last_value = apply_flat(model, state.params, obs)[2]
-
-    env_state = es.replace(
-        px=flat["px"], py=flat["py"], ppsi=flat["psi"], pa_lat=pa_lat,
-        tx=flat["tx"][:, None], ty=flat["ty"][:, None],
-        tv=flat["tv"][:, None], tpsi=flat["tpsi"][:, None],
-        steps=flat["steps"], total_reward=flat["total_reward"],
-        outcome=torch.zeros_like(es.outcome))
-
-    metrics = episode_metrics(episode_sums(
-        bufs["dones"], bufs["episode_return"], bufs["episode_steps"],
-        bufs["outcome"], False, torch.float32), mesh)
-    new_state = state.replace(env_state=env_state, obs=obs,
-                              iteration=state.iteration + 1)
-    return new_state, batch, last_value, metrics
-
-
 EPISODE_KEYS = ("episodes", "ep_return_mean", "ep_length_mean", "goal_rate",
                 "collision_rate", "timeout_rate")
 
@@ -383,13 +331,13 @@ def per_member(x: torch.Tensor) -> torch.Tensor:
 
 def episode_sums(dones: torch.Tensor, episode_return: torch.Tensor,
                  episode_steps: torch.Tensor, outcome: torch.Tensor,
-                 members: bool, dtype) -> torch.Tensor:
-    """The sums behind JAX's six episode metrics: episodes ended, their
-    returns and lengths, and their goals, collisions and timeouts, stacked
-    as a (6,) tensor of `dtype`, or with `members` (of (T, P, B) fields) a
-    (6, P) one."""
+                 dtype) -> torch.Tensor:
+    """The sums behind JAX's six episode metrics of each member, from
+    (T, P, B) fields: episodes ended, their returns and lengths, and their
+    goals, collisions and timeouts, stacked as a (6, P) tensor of
+    `dtype`."""
     def total(x):
-        return (per_member(x).sum(-1) if members else x.sum()).to(dtype)
+        return per_member(x).sum(-1).to(dtype)
     return torch.stack([total(dones), total(episode_return),
                         total(episode_steps), total(outcome == 1),
                         total(outcome == 2), total(outcome == 3)])
@@ -524,8 +472,108 @@ def rollout_members(params: torch.Tensor, env_state: EnvState,
     last_values = members_forward(params, obs)[1]
     metrics = episode_metrics(episode_sums(
         b["done"], b["episode_return"], b["episode_steps"], b["outcome"],
-        True, dtype), mesh)
+        dtype), mesh)
     return _envs_view(es, 1, (P, B)), obs, batch, last_values, metrics
+
+
+@torch.no_grad()
+def rollout_members_fused(params: torch.Tensor, env_state: EnvState,
+                          obs: torch.Tensor, cfg: PPOConfig,
+                          env_params: EnvParams, seed,
+                          mesh: Optional[Mesh] = None,
+                          kernel: Callable = fused_policy_rollout_members
+                          ) -> Tuple[EnvState, torch.Tensor, RolloutBatch,
+                                     torch.Tensor, Dict[str, torch.Tensor]]:
+    """`rollout_members` as cfg.n_steps / fused_chunk launches of the
+    member-grid policy rollout, one seed for all chunks and members (an
+    int or a (1,) int32 tensor on the state's device) and the step counter
+    offset by chunk.  Shapes and returns as `rollout_members`'; with a
+    `mesh` the caller folds the rank into the seed
+    (`parallel.mesh.fold_seed`).
+
+    `kernel` launches one chunk, with `fused_policy_rollout_members`'
+    arguments and returns.  The training iterations pass it by the name
+    their module imports (`learner.fused_policy_rollout` for one policy,
+    `population.fused_policy_rollout_members` for a population), which is
+    where `benchmark/tests/test_bench_faults.py` alters a rollout's
+    rewards to show that the benchmark's check catches it."""
+    K = cfg.fused_chunk
+    if cfg.n_steps % K:
+        raise ValueError(f"n_steps {cfg.n_steps} not divisible by "
+                         f"fused_chunk {K}")
+    es = env_state
+    flat = dict(px=es.px, py=es.py, psi=es.ppsi, tx=es.tx[..., 0],
+                ty=es.ty[..., 0], tv=es.tv[..., 0], tpsi=es.tpsi[..., 0],
+                steps=es.steps, total_reward=es.total_reward)
+    chunks = []
+    for idx in range(cfg.n_steps // K):
+        flat, buf = kernel(flat, obs, params, seed, idx * K, K, env_params)
+        obs = flat.pop("obs")
+        pa_lat = flat.pop("pa_lat")
+        chunks.append(buf)
+    bufs = {k: torch.cat([b[k] for b in chunks]) for k in chunks[0]}
+    batch = RolloutBatch(
+        obs=bufs["obs"], actions=bufs["actions"][..., None],
+        log_probs=bufs["log_probs"], values=bufs["values"],
+        rewards=bufs["rewards"], dones=bufs["dones"] > 0)
+    last_values = members_forward(params, obs)[1]
+    es = es.replace(
+        px=flat["px"], py=flat["py"], ppsi=flat["psi"], pa_lat=pa_lat,
+        tx=flat["tx"][..., None], ty=flat["ty"][..., None],
+        tv=flat["tv"][..., None], tpsi=flat["tpsi"][..., None],
+        steps=flat["steps"], total_reward=flat["total_reward"],
+        outcome=torch.zeros_like(es.outcome))
+    metrics = episode_metrics(episode_sums(
+        bufs["dones"], bufs["episode_return"], bufs["episode_steps"],
+        bufs["outcome"], torch.float32), mesh)
+    return es, obs, batch, last_values, metrics
+
+
+def _one_policy_chunk(flat: Dict[str, torch.Tensor], obs: torch.Tensor,
+                      params: torch.Tensor, *args
+                      ) -> Tuple[Dict[str, torch.Tensor],
+                                 Dict[str, torch.Tensor]]:
+    """`rollout_members_fused`'s `kernel` for a one-member grid: the chunk
+    through the one-policy entry `fused_policy_rollout` (itself the P = 1
+    call of `fused_policy_rollout_members`), its returns as the grid's."""
+    final, buf = fused_policy_rollout({k: v[0] for k, v in flat.items()},
+                                      obs[0], params[0], *args)
+    return ({k: v[None] for k, v in final.items()},
+            {k: v[:, None] for k, v in buf.items()})
+
+
+def _one_member(rollout: Callable, state: TrainState, *args
+                ) -> Tuple[TrainState, RolloutBatch, torch.Tensor,
+                           Dict[str, torch.Tensor]]:
+    """The solo `state`'s rollout as the P = 1 call of `rollout`
+    (`rollout_members` or `rollout_members_fused`, taking `args` after the
+    params, envs and obs).  Returns (state', batch with (T, B, ...)
+    leaves, last_value (B,), metrics)."""
+    B = state.obs.shape[0]
+    es, obs, batch, last_values, metrics = rollout(
+        state.params[None], _envs_view(state.env_state, 1, (1, B)),
+        state.obs[None], *args)
+    batch = RolloutBatch(**{f.name: getattr(batch, f.name)[:, 0]
+                            for f in dataclasses.fields(RolloutBatch)})
+    new_state = state.replace(env_state=_envs_view(es, 2, (B,)), obs=obs[0],
+                              iteration=state.iteration + 1)
+    return (new_state, batch, last_values[0],
+            {k: v[0] for k, v in metrics.items()})
+
+
+def collect_rollout_fused(state: TrainState, cfg: PPOConfig,
+                          env_params: EnvParams, seed,
+                          mesh: Optional[Mesh] = None
+                          ) -> Tuple[TrainState, RolloutBatch, torch.Tensor,
+                                     Dict[str, torch.Tensor]]:
+    """The fused rollout of one policy (JAX `collect_rollout_fused`): the
+    P = 1 call of `rollout_members_fused`.  Returns (state', batch with
+    (T, B, ...) leaves, last_value (B,), metrics).  With a `mesh`, the
+    state is this rank's rows of the env batch and the metrics are the
+    whole batch's: the episode sums are added over the ranks before they
+    are divided."""
+    return _one_member(rollout_members_fused, state, cfg, env_params, seed,
+                       mesh, _one_policy_chunk)
 
 
 def collect_rollout(state: TrainState, cfg: PPOConfig,
@@ -534,21 +582,12 @@ def collect_rollout(state: TrainState, cfg: PPOConfig,
                     ) -> Tuple[TrainState, RolloutBatch, torch.Tensor,
                                Dict[str, torch.Tensor]]:
     """The unfused rollout of one policy (JAX `collect_rollout`): the P = 1
-    call of `rollout_members`, draws of batch shape (B,).  Returns
-    (state', batch with (T, B, ...) leaves, last_value (B,), metrics); with
-    a `mesh`, as `collect_rollout_fused`'s."""
-    B = state.obs.shape[0]
-    es, obs, batch, last_values, metrics = rollout_members(
-        state.params[None], _envs_view(state.env_state, 1, (1, B)),
-        state.obs[None], cfg, env_params,
+    call of `rollout_members`, draws of batch shape (B,).  Returns and
+    `mesh` as `collect_rollout_fused`'s."""
+    return _one_member(
+        rollout_members, state, cfg, env_params,
         RolloutDraws(noise=draws.noise[:, None], spawn=draws.spawn[:, None]),
         mesh)
-    batch = RolloutBatch(**{f.name: getattr(batch, f.name)[:, 0]
-                            for f in dataclasses.fields(RolloutBatch)})
-    new_state = state.replace(env_state=_envs_view(es, 2, (B,)), obs=obs[0],
-                              iteration=state.iteration + 1)
-    return (new_state, batch, last_values[0],
-            {k: v[0] for k, v in metrics.items()})
 
 
 # ------------------------------------------------------------------- loss
@@ -633,7 +672,11 @@ def draw_perms(cfg: PPOConfig, generators: Sequence[torch.Generator],
 
 def minibatch_grads_fn(cfg: PPOConfig, mesh: Optional[Mesh] = None
                        ) -> Callable:
-    """grads(params (P, N_PARAMS), mb (P, M, 13)) -> (grads (P, N_PARAMS),
+    """The gradients of an already-normalised minibatch: the step
+    normalises no advantage, whatever cfg.normalize_advantage says, since
+    its caller (`ppo_update_members`) has normalised the whole epoch.
+
+    grads(params (P, N_PARAMS), mb (P, M, 13)) -> (grads (P, N_PARAMS),
     aux {k: (P,)}): a minibatch step's gradients, from the fused kernel
     under cfg.fused_update, else by autograd (`ppo_loss_grads`).
 
@@ -642,30 +685,20 @@ def minibatch_grads_fn(cfg: PPOConfig, mesh: Optional[Mesh] = None
     minibatch and computes the gradients of its rows [r M / W, (r + 1) M /
     W); their mean over the ranks, of the gradients and the loss
     statistics in one flat buffer, is the whole minibatch's (JAX's
-    `pmean`).  SB3's advantage normalisation needs the whole minibatch's
-    statistics, so it runs before the rows are taken
-    (`normalize_adv_column`, JAX learner.py:355-359), and the rows' own
-    step does not normalise.  A mesh of one process keeps the
-    single-process step, which normalises in the kernel or the loss.
-    Refuses the fused update when a rank's rows are not a multiple of 128,
-    as JAX does.
+    `pmean`).  Refuses the fused update when a rank's rows are not a
+    multiple of 128, as JAX does."""
+    plain = dataclasses.replace(cfg, normalize_advantage=False)
 
-    The update (`ppo_update_members`) normalises each epoch's minibatches
-    at once, before its steps, so the grads function it takes receives
-    normalised minibatches: it builds this one from `stepwise_config(cfg)`,
-    whose steps normalise nothing.  Every rank holds the whole gathered
-    batch, so each minibatch is still normalised whole."""
-    def local(params, mb, normalize):
+    def local(params, mb):
         if cfg.fused_update:
             return ppo_minibatch_grads_members(
                 params, mb, clip_range=cfg.clip_range, vf_coef=cfg.vf_coef,
-                ent_coef=cfg.ent_coef, normalize_advantage=normalize,
+                ent_coef=cfg.ent_coef, normalize_advantage=False,
                 bf16=cfg.fused_update_bf16)
-        return ppo_loss_grads(params, mb, dataclasses.replace(
-            cfg, normalize_advantage=normalize))
+        return ppo_loss_grads(params, mb, plain)
 
     if mesh is None or not mesh.distributed:
-        return lambda params, mb: local(params, mb, cfg.normalize_advantage)
+        return local
     W, M = mesh.size, cfg.minibatch_size
     if M % W or (cfg.fused_update and (M // W) % 128):
         raise ValueError(
@@ -674,13 +707,9 @@ def minibatch_grads_fn(cfg: PPOConfig, mesh: Optional[Mesh] = None
             f"the sharded update splits every minibatch evenly over the "
             f"ranks: minibatch {M} over {W} devices")
     rows = env_rows(M, mesh)
-    before = cfg.normalize_advantage and W > 1
 
     def sharded(params, mb):
-        if before:
-            mb = normalize_adv_column(mb)
-        grads, aux = local(params, mb[:, rows],
-                           cfg.normalize_advantage and not before)
+        grads, aux = local(params, mb[:, rows])
         keys = list(aux)
         flat = all_reduce_mean(torch.cat(
             [grads.reshape(-1)] + [aux[k].to(grads.dtype) for k in keys]),
@@ -691,13 +720,6 @@ def minibatch_grads_fn(cfg: PPOConfig, mesh: Optional[Mesh] = None
                 {k: out[i].to(aux[k].dtype) for i, k in enumerate(keys)})
 
     return sharded
-
-
-def stepwise_config(cfg: PPOConfig) -> PPOConfig:
-    """The config a minibatch step of `ppo_update_members` runs under:
-    cfg with no advantage normalisation, which the update has done for the
-    whole epoch before the step."""
-    return dataclasses.replace(cfg, normalize_advantage=False)
 
 
 def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
@@ -720,15 +742,17 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
     from the Adam count.  Under cfg.fused_update every minibatch step of
     all members is one launch of the gradient kernel, with bf16 operands
     under cfg.fused_update_bf16; else its gradients come from autograd
-    (`ppo_loss_grads`).  `grads_fn` (`minibatch_grads_fn` of
-    `stepwise_config(cfg)`, by default that of one process) takes the
-    steps' gradients.  Metrics are (P,) means over the steps.
+    (`ppo_loss_grads`).  `grads_fn` (`minibatch_grads_fn`, by default that
+    of one process) takes the steps' gradients.  Metrics are (P,) means
+    over the steps.
 
-    Each epoch gathers its private copy minibatch-major, (n_minibatches,
-    P, M, 13), so that every step's (P, M, 13) slice is contiguous; under
-    cfg.normalize_advantage `normalize_adv_minibatches` then normalises
-    every minibatch of every member in place, once an epoch, and
-    `grads_fn` receives normalised minibatches."""
+    The update alone normalises the advantages (SB3's per minibatch, under
+    cfg.normalize_advantage): each epoch gathers its private copy
+    minibatch-major, (n_minibatches, P, M, 13), so that every step's
+    (P, M, 13) slice is contiguous, and `normalize_adv_minibatches`
+    normalises every minibatch of every member in place, once an epoch,
+    before its steps; on a mesh every rank holds the whole gathered
+    batch, so each minibatch is still normalised whole."""
     P, N = data.shape[:2]
     block = cfg.shuffle_block
     n_blocks = N // block
@@ -738,7 +762,7 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
             opt_state.count, cfg.n_epochs * cfg.n_minibatches,
             params.dtype).to(data.device)
     if grads_fn is None:
-        grads_fn = minibatch_grads_fn(stepwise_config(cfg))
+        grads_fn = minibatch_grads_fn(cfg)
     n_mb = cfg.n_minibatches
     blocks = data.view(P, n_blocks, block, data.shape[-1])
     members = torch.arange(P, device=data.device)[:, None]
@@ -940,11 +964,10 @@ def _solo_iteration(cfg: PPOConfig, env_params: EnvParams,
     averages the ranks' gradients of their rows (`minibatch_grads_fn`).
     Explained variance is taken on the gathered batch, and the episode
     metrics from sums over the ranks."""
-    model = ActorCritic(device=dev)
     optimizer = Optimizer(cfg)
     if mesh is not None and not mesh.distributed:
         mesh = None
-    grads_fn = minibatch_grads_fn(stepwise_config(cfg), mesh)
+    grads_fn = minibatch_grads_fn(cfg, mesh)
     first = env_rows(cfg.n_envs, mesh).start if mesh is not None else 0
 
     def iteration(state: TrainState, seed, perms, scalars, mark,
@@ -953,7 +976,7 @@ def _solo_iteration(cfg: PPOConfig, env_params: EnvParams,
         mark("start")
         if cfg.fused_rollout:
             state, batch, last_value, env_metrics = collect_rollout_fused(
-                model, state, cfg, env_params,
+                state, cfg, env_params,
                 seed if mesh is None else fold_seed(seed, mesh), mesh)
         else:
             if draws is None:

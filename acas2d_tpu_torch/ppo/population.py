@@ -15,10 +15,10 @@ key.  Where JAX `vmap`s the train step over members, the port writes the
 member axis out:
 
   * every rollout chunk of the whole population is ONE launch of the
-    member-grid rollout kernel (`ops/policy_rollout.py:
-    fused_policy_rollout_members`); unfused, every step of the whole
-    population is one step of the batch-native env core over P * B envs,
-    each member's policy on its own (`learner.rollout_members`);
+    member-grid rollout kernel (`learner.rollout_members_fused`);
+    unfused, every step of the whole population is one step of the
+    batch-native env core over P * B envs, each member's policy on its
+    own (`learner.rollout_members`);
   * GAE runs once over the flattened (T, P * B) batch, which is exact
     because GAE is per env;
   * every minibatch step of the whole population is ONE launch of the
@@ -37,7 +37,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +45,6 @@ import torch
 from acas2d_tpu_torch import resolve_device
 from acas2d_tpu_torch.config import EnvParams
 from acas2d_tpu_torch.envs import vector
-from acas2d_tpu_torch.models.actor_critic import members_forward
 from acas2d_tpu_torch.ops.policy_rollout import fused_policy_rollout_members
 from acas2d_tpu_torch.parallel.mesh import Mesh, env_rows, fold_seed
 from acas2d_tpu_torch.ppo import learner
@@ -86,58 +85,6 @@ def init_population(cfg: PPOConfig, env_params: EnvParams, pop: int,
         params=params, opt_state=learner.Optimizer(cfg).init(params),
         env_state=env_state, obs=torch.stack([s.obs for s in solo]),
         generators=[s.generator for s in solo])
-
-
-def collect_rollout_fused_members(state: PopulationState, cfg: PPOConfig,
-                                  env_params: EnvParams, seed
-                                  ) -> Tuple[PopulationState,
-                                             learner.RolloutBatch,
-                                             torch.Tensor,
-                                             Dict[str, torch.Tensor]]:
-    """cfg.n_steps / fused_chunk launches of the member-grid rollout, one
-    seed for all chunks and members (an int or a (1,) int32 tensor on the
-    state's device; the steps draw it from member 0's generator) and the
-    step counter offset by chunk.  Returns (state', batch with time-major
-    (T, P, B, ...) leaves, last_values (P, B), per-member episode metrics
-    (P,))."""
-    K = cfg.fused_chunk
-    if cfg.n_steps % K:
-        raise ValueError(f"n_steps {cfg.n_steps} not divisible by "
-                         f"fused_chunk {K}")
-    es = state.env_state
-    flat = dict(px=es.px, py=es.py, psi=es.ppsi, tx=es.tx[..., 0],
-                ty=es.ty[..., 0], tv=es.tv[..., 0], tpsi=es.tpsi[..., 0],
-                steps=es.steps, total_reward=es.total_reward)
-    obs = state.obs
-    chunks = []
-    for idx in range(cfg.n_steps // K):
-        flat, buf = fused_policy_rollout_members(flat, obs, state.params,
-                                                 seed, idx * K, K, env_params)
-        obs = flat.pop("obs")
-        pa_lat = flat.pop("pa_lat")
-        chunks.append(buf)
-    bufs = {k: torch.cat([b[k] for b in chunks]) for k in chunks[0]}
-
-    batch = learner.RolloutBatch(
-        obs=bufs["obs"], actions=bufs["actions"][..., None],
-        log_probs=bufs["log_probs"], values=bufs["values"],
-        rewards=bufs["rewards"], dones=bufs["dones"] > 0)
-    with torch.no_grad():
-        last_values = members_forward(state.params, obs)[1]
-
-    env_state = es.replace(
-        px=flat["px"], py=flat["py"], ppsi=flat["psi"], pa_lat=pa_lat,
-        tx=flat["tx"][..., None], ty=flat["ty"][..., None],
-        tv=flat["tv"][..., None], tpsi=flat["tpsi"][..., None],
-        steps=flat["steps"], total_reward=flat["total_reward"],
-        outcome=torch.zeros_like(es.outcome))
-
-    metrics = learner.episode_metrics(learner.episode_sums(
-        bufs["dones"], bufs["episode_return"], bufs["episode_steps"],
-        bufs["outcome"], True, torch.float32))
-    new_state = state.replace(env_state=env_state, obs=obs,
-                              iteration=state.iteration + 1)
-    return new_state, batch, last_values, metrics
 
 
 def member_sharded(pop: int, mesh: Optional[Mesh]) -> bool:
@@ -193,8 +140,10 @@ def _population_iteration(cfg: PPOConfig, env_params: EnvParams,
         if cfg.fused_rollout:
             if mesh is not None:
                 seed = fold_seed(seed[mesh.rank:mesh.rank + 1], mesh)
-            state, batch, last_values, env_metrics = (
-                collect_rollout_fused_members(state, cfg, env_params, seed))
+            env_state, obs, batch, last_values, env_metrics = (
+                learner.rollout_members_fused(
+                    state.params, state.env_state, state.obs, cfg,
+                    env_params, seed, kernel=fused_policy_rollout_members))
         else:
             if draws is None:
                 draws = learner.rollout_draws(
@@ -203,8 +152,8 @@ def _population_iteration(cfg: PPOConfig, env_params: EnvParams,
             env_state, obs, batch, last_values, env_metrics = (
                 learner.rollout_members(state.params, state.env_state,
                                         state.obs, cfg, env_params, draws))
-            state = state.replace(env_state=env_state, obs=obs,
-                                  iteration=state.iteration + 1)
+        state = state.replace(env_state=env_state, obs=obs,
+                              iteration=state.iteration + 1)
         mark("rollout")
         T = batch.values.shape[0]
         advantages, returns = compute_gae(

@@ -24,6 +24,7 @@ package's, float32 on the CPU.
   `load_params_npz` and the port's exact eval.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -160,6 +161,75 @@ def test_init_population_members_are_solo_inits():
         assert torch.equal(st.generators[i].get_state(),
                            solo.generator.get_state())
     assert not torch.equal(st.params[0], st.params[1])
+
+
+@pytest.mark.parametrize("fused_update", [False, True],
+                         ids=["autograd", "fused_update"])
+@pytest.mark.parametrize("fused_rollout", [False, True],
+                         ids=["unfused_rollout", "fused_rollout"])
+def test_one_member_population_step_is_the_solo_step(fused_rollout,
+                                                     fused_update):
+    """A population of one, from the solo run's state and generator, takes
+    the solo step on every path pair: params, Adam moments, env state, obs,
+    generator and every metric bit for bit after 2 iterations.  The
+    episodes start part-way through, so that some end in the rollouts."""
+    cfg = PPOConfig(n_envs=64, n_steps=32, fused_chunk=16,
+                    minibatch_size=512, n_epochs=2,
+                    total_timesteps=64 * 32 * 2, seed=9,
+                    fused_rollout=fused_rollout, fused_update=fused_update)
+    solo = learner.init_train_state(cfg, TP, "cpu")
+    late = torch.randint(TP.max_steps - 48, TP.max_steps + 1, (64,),
+                         generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32)
+    solo = solo.replace(env_state=solo.env_state.replace(steps=late))
+    pop = population.init_population(cfg, TP, 1, "cpu")
+    pop = pop.replace(env_state=pop.env_state.replace(steps=late[None]))
+    solo_step = learner.make_train_step(cfg, TP, "cpu")
+    pop_step = population.make_population_step(cfg, TP, "cpu")
+    for _ in range(2):
+        solo, want = solo_step(solo)
+        pop, got = pop_step(pop)
+        assert want["episodes"] > 0
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert torch.equal(got[k][0], v), k
+    assert pop.iteration == solo.iteration == 2
+    assert pop.opt_state.count == solo.opt_state.count
+    for a, b in ((pop.params, solo.params), (pop.opt_state.mu,
+                                             solo.opt_state.mu),
+                 (pop.opt_state.nu, solo.opt_state.nu), (pop.obs, solo.obs)):
+        assert torch.equal(a[0], b)
+    for f in dataclasses.fields(EnvState):
+        assert torch.equal(getattr(pop.env_state, f.name)[0],
+                           getattr(solo.env_state, f.name)), f.name
+    assert torch.equal(pop.generators[0].get_state(),
+                       solo.generator.get_state())
+
+
+@pytest.mark.parametrize("pop", [0, 2], ids=["solo", "population"])
+def test_fused_rollout_chunks_go_through_the_module_names(monkeypatch, pop):
+    """Every fused rollout chunk of a training step goes through
+    `learner.fused_policy_rollout` (solo) or
+    `population.fused_policy_rollout_members` (population): the names where
+    benchmark/tests/test_bench_faults.py alters a rollout's rewards."""
+    mod, name = ((population, "fused_policy_rollout_members") if pop
+                 else (learner, "fused_policy_rollout"))
+    real, calls = getattr(mod, name), []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    monkeypatch.setattr(mod, name, counted)
+    cfg = PPOConfig(n_envs=64, n_steps=32, fused_chunk=16,
+                    minibatch_size=512, n_epochs=1,
+                    total_timesteps=64 * 32, fused_rollout=True)
+    if pop:
+        step = population.make_population_step(cfg, TP, "cpu")
+        step(population.init_population(cfg, TP, pop, "cpu"))
+    else:
+        step = learner.make_train_step(cfg, TP, "cpu")
+        step(learner.init_train_state(cfg, TP, "cpu"))
+    assert len(calls) == 2
 
 
 def test_optimizer_clips_each_member_by_its_own_norm():

@@ -12,10 +12,11 @@ DIR`) runs every case and writes its outputs; the tests compare them:
     tolerance for the fused update (tests/test_sharding.py:115-121).  The
     unfused rollout's draws are the single process's rows, so its env
     state starts the same and differs only by the update's sum order;
-  * the fused gradients of one minibatch, split 128 rows a rank and
-    averaged, against JAX `make_fused_grads_fn(cfg, mesh)` (Pallas in
-    interpret mode under `shard_map` with `pmean`) on the same params and
-    minibatch, each block within 1e-5 of its largest entry
+  * the fused gradients of one minibatch, normalised whole as the update
+    normalises it, split 128 rows a rank and averaged, against JAX
+    `make_fused_grads_fn(cfg, mesh)` (Pallas in interpret mode under
+    `shard_map` with `pmean`) on the same params and minibatch, each
+    block within 1e-5 of its largest entry
     (tests/test_torch_ppo_grads.py's bound);
   * the fused rollout of 1024 envs a rank, the seed folded by rank,
     against JAX `collect_rollout_fused(..., mesh=<2 devices>)` with the
@@ -35,7 +36,7 @@ import pytest
 import torch
 
 from acas2d_tpu_torch.config import DEFAULT_PARAMS as TP
-from acas2d_tpu_torch.models.actor_critic import ActorCritic
+from acas2d_tpu_torch.ops import ppo_grads
 from acas2d_tpu_torch.parallel import dryrun, launch, mesh as mesh_lib
 from acas2d_tpu_torch.ppo import learner
 from acas2d_tpu_torch.ppo.config import PPOConfig
@@ -76,10 +77,11 @@ def _worker(out: str) -> None:
                            mesh)
     inputs = torch.load(os.path.join(out, "inputs.pt"), weights_only=False)
     r = mesh.rank
-    # the fused gradients of one minibatch, split over the ranks
+    # the fused gradients of one minibatch, normalised whole, then split
+    # over the ranks
     g = inputs["grads"]
     grads, aux = learner.minibatch_grads_fn(PPOConfig(**GRADS), mesh)(
-        g["params"][None], g["mb"][None])
+        g["params"][None], ppo_grads.normalize_adv_column(g["mb"][None]))
     # the fused rollout of this rank's rows, the seed folded by rank
     ro = inputs["rollout"]
     rows = mesh_lib.env_rows(ROLL["n_envs"], mesh)
@@ -89,7 +91,7 @@ def _worker(out: str) -> None:
         env_state=mesh_lib.shard_env_state(ro["env_state"], mesh),
         obs=ro["obs"][rows].clone(), generator=torch.Generator())
     new, batch, last, metrics = learner.collect_rollout_fused(
-        ActorCritic(), state, PPOConfig(**ROLL), TP,
+        state, PPOConfig(**ROLL), TP,
         mesh_lib.fold_seed(ro["seed"], mesh), mesh)
     torch.save({"grads": grads, "aux": aux,
                 "batch": dataclasses.asdict(batch), "metrics": metrics,
