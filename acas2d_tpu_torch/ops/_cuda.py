@@ -24,7 +24,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("policy_rollout", "ppo_grads", "env_rollout", "precision_probe",
-           "phase_mark")
+           "phase_mark", "greedy_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -71,7 +71,8 @@ from acas2d_tpu_torch.models.actor_critic import (
     ActorCritic, apply_flat, flatten, gaussian_entropy, gaussian_log_prob,
     members_forward, members_log_std, sample_action)
 from acas2d_tpu_torch.oracle import MersenneSpawner
-from acas2d_tpu_torch.ops import phase_mark, policy_rollout, ppo_grads
+from acas2d_tpu_torch.ops import (greedy_step, phase_mark, policy_rollout,
+                                  ppo_grads)
 from acas2d_tpu_torch.ops import step_math as sm
 from acas2d_tpu_torch.ops.policy_rollout import (
     fused_policy_rollout, fused_policy_rollout_members, seed_int32)
@@ -1296,26 +1297,6 @@ def make_train_loop(cfg: PPOConfig, env_params: EnvParams,
 GREEDY_CHUNK = 64      # steps between the host's early-exit checks
 
 
-def _greedy_steps(policy_mean: Callable[[torch.Tensor], torch.Tensor],
-                  carry: Tuple, env_params: EnvParams, n_steps: int
-                  ) -> Tuple:
-    """`n_steps` greedy steps of carry = (env_state, obs, ret, length,
-    outcome, done_seen): every env takes its clipped mean action, and the
-    first episode of each is recorded."""
-    env_state, obs, ret, length, outcome, done_seen = carry
-    dtype = env_state.px.dtype
-    for _ in range(n_steps):
-        a = torch.clamp(policy_mean(obs), -1.0, 1.0).to(dtype)
-        env_state, out = vector.step_batch(env_state, a, env_params)
-        active = ~done_seen
-        ret = ret + torch.where(active, out.reward, 0.0)
-        length = length + active.to(torch.int32)
-        outcome = torch.where(active & out.done, out.outcome, outcome)
-        done_seen = done_seen | out.done
-        obs = out.obs
-    return env_state, obs, ret, length, outcome, done_seen
-
-
 def _greedy_start(env_state: EnvState, obs: torch.Tensor) -> Tuple:
     n = obs.shape[0]
     dev = obs.device
@@ -1337,20 +1318,21 @@ def greedy_rollout(policy_mean: Callable[[torch.Tensor], torch.Tensor],
     """Step every env greedily (clipped mean action) for up to max_steps and
     record its FIRST episode: per-env return, length and outcome, eagerly.
     `policy_mean(obs (n, 8))` gives the (n,) action means; the env steps in
-    its own dtype (float64 for the exact protocol).  The host checks after
-    every GREEDY_CHUNK steps whether every env has ended, and stops: later
-    steps change nothing.  `GreedyEval` replays the same chunks as CUDA
-    graphs on the card; this loop is what it runs on the CPU.  Each chunk,
-    its check included, is the span `eval.chunk`, and the chunks run add
-    to the counter `eval.chunks`."""
+    its own dtype (float64 for the exact protocol); a step is
+    `greedy_step.step_plain`.  The host checks after every GREEDY_CHUNK
+    steps whether every env has ended, and stops: later steps change
+    nothing.  `GreedyEval` replays the same chunks as CUDA graphs on the
+    card; this loop is what it runs on the CPU.  Each chunk, its check
+    included, is the span `eval.chunk`, and the chunks run add to the
+    counter `eval.chunks`."""
     carry = _greedy_start(env_state, obs)
     chunks = 0
     for start in range(0, env_params.max_steps, GREEDY_CHUNK):
         chunks += 1
         with profiling.span("eval.chunk"):
-            carry = _greedy_steps(
-                policy_mean, carry, env_params,
-                min(GREEDY_CHUNK, env_params.max_steps - start))
+            for _ in range(min(GREEDY_CHUNK, env_params.max_steps - start)):
+                carry = greedy_step.step_plain(carry, policy_mean(carry[1]),
+                                               env_params)
             done = bool(carry[-1].all())
         if done:
             break
@@ -1361,9 +1343,13 @@ def greedy_rollout(policy_mean: Callable[[torch.Tensor], torch.Tensor],
 class _ChunkGraphs:
     """The greedy loop's chunks captured as CUDA graphs for one (envs, env
     dtype, policy kind, P): a GREEDY_CHUNK-step graph and, when max_steps
-    is not a multiple of it, a graph of the remaining steps.  Both read
-    and update the same static tensors in place (the params and the
-    carry), so replays chain with no copy between them."""
+    is not a multiple of it, a graph of the remaining steps.  A step is the
+    policy's mean, then one launch of the greedy step kernel
+    (`ops/greedy_step.py`), which updates the static carry in place, so
+    replays chain with no copy between them.  The kernel's launches that a
+    capture moved are put back; each replay adds those its graph holds to
+    `greedy_step.launches` and, while a profiler records, to the counter
+    `eval.step_launches`."""
 
     def __init__(self, policy_mean, params: torch.Tensor,
                  env_state: EnvState, obs: torch.Tensor,
@@ -1372,25 +1358,32 @@ class _ChunkGraphs:
         self.carry = tuple(_clone(x) for x in _greedy_start(env_state, obs))
         full, tail = divmod(env_params.max_steps, GREEDY_CHUNK)
         self.lengths = [GREEDY_CHUNK] * full + ([tail] if tail else [])
+        kernel = greedy_step.greedy_step
 
         def chunk(n_steps):
-            new = _greedy_steps(lambda o: policy_mean(self.params, o),
-                                self.carry, env_params, n_steps)
-            for dst, src in zip(_leaves(self.carry), _leaves(new)):
-                dst.copy_(src)
+            for _ in range(n_steps):
+                kernel(self.carry, policy_mean(self.params, self.carry[1]),
+                       env_params)
 
-        # warm up (cuBLAS handles, workspaces) on the capture stream
+        # warm up (the kernel's library, cuBLAS handles, workspaces) on the
+        # capture stream
         stream = torch.cuda.Stream(device=obs.device)
         stream.wait_stream(torch.cuda.current_stream(obs.device))
         with torch.cuda.stream(stream):
             chunk(1)
         torch.cuda.current_stream(obs.device).wait_stream(stream)
         self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
+        self.launches: Dict[int, int] = {}
         pool = None
         for n in sorted(set(self.lengths), reverse=True):
             g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=pool, stream=stream):
-                chunk(n)
+            before = kernel.launches
+            try:
+                with torch.cuda.graph(g, pool=pool, stream=stream):
+                    chunk(n)
+            finally:
+                self.launches[n] = kernel.launches - before
+                kernel.launches = before
             pool = g.pool()
             self.graphs[n] = g
 
@@ -1403,25 +1396,22 @@ class _ChunkGraphs:
         `eval.chunks`)."""
         with profiling.span("eval.load"):
             self.params.copy_(params)
-            for dst, src in zip(_leaves(self.carry),
-                                _leaves(_greedy_start(env_state, obs))):
+            for dst, src in zip(greedy_step.leaves(self.carry),
+                                greedy_step.leaves(
+                                    _greedy_start(env_state, obs))):
                 dst.copy_(src)
         chunks = 0
         for n in self.lengths:
             chunks += 1
             with profiling.span("eval.chunk"):
                 self.graphs[n].replay()
+                greedy_step.greedy_step.launches += self.launches[n]
+                profiling.count("eval.step_launches", self.launches[n])
                 done = bool(self.carry[-1].all())
             if done:
                 break
         profiling.count("eval.chunks", chunks)
         return self.carry
-
-
-def _leaves(carry: Tuple) -> List[torch.Tensor]:
-    env_state = carry[0]
-    return ([getattr(env_state, f.name)
-             for f in dataclasses.fields(EnvState)] + list(carry[1:]))
 
 
 def _clone(x):
@@ -1438,13 +1428,17 @@ class GreedyEval:
     MLP).  The policy runs in its params' dtype (float32) on the env's
     observations.
 
-    On the CPU it runs `greedy_rollout`.  On a CUDA device each GREEDY_CHUNK
-    steps of that loop (about 440 small launches a step) are captured once
-    per (envs, env dtype, P) as a CUDA graph and replayed, the params and
-    the start state copied into the graph's static inputs first; between
-    replays the host reads only whether every env has ended, as the eager
-    loop does, so the results are the eager loop's bit for bit.  A capture
-    that fails raises; nothing falls back to the eager loop on the card.
+    On the CPU it runs `greedy_rollout`.  On a CUDA device a step of that
+    loop is the policy's mean and one launch of the greedy step kernel
+    (`ops/greedy_step.py`, the eager step and its bookkeeping bit for bit:
+    about 14 launches a step with the MLP, where the eager step makes about
+    440), and each GREEDY_CHUNK steps are captured once per (envs,
+    env dtype, P) as a CUDA graph (`_ChunkGraphs`) and replayed, the
+    params and the start state copied into the graph's static inputs
+    first; between replays the host reads only whether every env has
+    ended, as the eager loop does, so the results are the eager loop's
+    bit for bit.  A capture that fails raises; nothing falls back to the
+    eager loop on the card.
 
     `evaluate` is one eval, the span `eval` (its key: the eval's ordinal),
     whose children are the host's work: `eval.reset` (the spawn),

@@ -48,7 +48,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      100 episodes (the greedy loop as replayed CUDA graphs), held to its
      committed record, with its episode CSV (`--out`, the telemetry
      rollout of the same spawns): 100 goals whose mean Total Reward is the
-     summary's;
+     summary's, and the mean FLAGSHIP_EXACT bit for bit;
   7. the env-only rollout kernel against its plain version (B = 32,768 envs
      flown part-way so that collisions, goals and timeouts occur, T = 256,
      random actions without and with the observation checksum, and zero
@@ -179,7 +179,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      untouched, two launches bit for bit; its time an epoch, its byte
      bound, its plain version's time and that of the per-step chain of
      torch ops it replaces.  `python3 chip_smoke.py --adv-norm` builds the
-     kernels and runs this phase alone.
+     kernels and runs this phase alone;
+ 21. the greedy eval's env step kernel (`ops/greedy_step.py`, one launch a
+     step) against the eager step it replaces, bit for bit, every field of
+     the carry after each step of a 64-step chunk, at the population
+     eval's shape (1,024 envs, float32) and the flagship's (100, float64),
+     then each as a replayed 64-step chunk against its bound by bytes and
+     beside the eager step's chunk, and one whole eval's launches at each
+     shape; and the flagship's exact eval through `GreedyEval` (the float64
+     greedy eval of `train --exact-eval` and of the pipeline's check, on
+     phase 6's Mersenne spawns) against the eager loop, bit for bit, with
+     100/100 goals and phase 6's mean.  `python3 chip_smoke.py
+     --greedy-step` builds the kernels and runs this phase, phase 6 and
+     phase 11 alone.
 `python3 chip_smoke.py --cards W` (W >= 2 cards of one host) builds the
 kernels and runs phase 17 across the cards instead: the dryrun on W ranks
 over NCCL (2048 / W envs and 32 / W members a rank) held as in (b); the
@@ -212,8 +224,9 @@ from acas2d_tpu_torch.envs import vector
 from acas2d_tpu_torch.models.actor_critic import (ActorCritic, N_PARAMS,
                                                   OBS_DIM, HIDDEN, flatten,
                                                   gaussian_log_prob)
-from acas2d_tpu_torch.ops import (_cuda, env_rollout, policy_rollout,
-                                  ppo_grads, precision_probe)
+from acas2d_tpu_torch.ops import (_cuda, env_rollout, greedy_step,
+                                  policy_rollout, ppo_grads,
+                                  precision_probe)
 from acas2d_tpu_torch.ops import step_math as sm
 from acas2d_tpu_torch.ppo.config import tpu_default
 from acas2d_tpu_torch.types import EnvState
@@ -772,6 +785,8 @@ def phase_eval():
           "the flagship's CSV is not 100 goals")
     check(csv_mean == res["mean_reward"],
           "the CSV's returns are not the summary's")
+    check(res["mean_reward"] == FLAGSHIP_EXACT,
+          f"the flagship's mean {res['mean_reward']!r}, not {FLAGSHIP_EXACT!r}")
     return res
 
 
@@ -2097,6 +2112,153 @@ def phase_adv_norm(dev):
     return out
 
 
+# ----------------------------------------------------------------- phase 21
+
+# the greedy eval's shapes: the population eval's (32 members x 32
+# episodes, float32) and the flagship's exact eval (100 episodes, float64)
+GREEDY_SHAPES = {"pop32": (POP * 32, torch.float32),
+                 "flagship": (100, torch.float64)}
+
+
+def greedy_step_bytes(B, dtype, max_traffic=1):
+    """The bytes a greedy step of B envs must move, each read once and
+    written once: it reads the state's floats (player 3, traffic 4 a slot,
+    total_reward, ret), num_traffic, steps, length, the first outcome,
+    done_seen and the float32 mean, and writes the state's floats (player
+    4, traffic 3 a slot, total_reward), the obs, ret, steps, the env's
+    outcome, length, the first outcome and done_seen."""
+    f = torch.finfo(dtype).bits // 8
+    read = (5 + 4 * max_traffic) * f + 4 * 4 + 1 + 4
+    write = (5 + 3 * max_traffic + 5 + 3 * max_traffic + 1) * f + 4 * 4 + 1
+    return B * (read + write)
+
+
+def greedy_carry(dev, B, dtype):
+    es, obs = vector.reset_batch(B, DEFAULT_PARAMS,
+                                 torch.Generator().manual_seed(12), dtype,
+                                 dev)
+    from acas2d_tpu_torch.ppo import learner
+    return learner._greedy_start(es, obs)
+
+
+def carry_bits(carry):
+    return [t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+            if t.is_floating_point() else t
+            for t in greedy_step.leaves(carry)]
+
+
+def chunk_graph_ms(step, n):
+    """ms a call of `step` (warmed) as a replayed CUDA graph of n calls;
+    the greedy step launches a capture counted are put back."""
+    step()
+    graph = torch.cuda.CUDAGraph()
+    n0 = greedy_step.greedy_step.launches
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            step()
+    greedy_step.greedy_step.launches = n0
+    return cuda_time_ms(graph.replay, 20) / n
+
+
+def time_greedy_step(args):
+    """(kernel ms a step, eager ms a step, (bound ms, by)) of the greedy
+    step at B envs of `dtype`, each as a replayed 64-step chunk."""
+    dev, B, dtype = args
+    from acas2d_tpu_torch.ppo import learner
+    carry = greedy_carry(dev, B, dtype)
+    mean = torch.linspace(-0.5, 0.5, B, device=dev)
+    ms = chunk_graph_ms(
+        lambda: greedy_step.greedy_step(carry, mean, DEFAULT_PARAMS),
+        learner.GREEDY_CHUNK)
+    eager = greedy_carry(dev, B, dtype)
+
+    def eager_step():
+        new = greedy_step.step_plain(eager, mean, DEFAULT_PARAMS)
+        for dst, src in zip(greedy_step.leaves(eager),
+                            greedy_step.leaves(new)):
+            dst.copy_(src)
+
+    eager_ms = chunk_graph_ms(eager_step, learner.GREEDY_CHUNK)
+    bound = greedy_step_bytes(B, dtype) / PEAK_BYTES_PER_S * 1e3
+    return ms, eager_ms, (bound, "bytes")
+
+
+def phase_greedy_step(dev):
+    """The greedy step kernel against the eager step, bit for bit after
+    every step of a 64-step chunk from fresh spawns under varied means, at
+    each of GREEDY_SHAPES; one whole eval's kernel launches at each (a
+    random policy's: its envs run to the step limit).  Returns {shape:
+    ((dev, B, dtype), launches of one eval)}."""
+    from acas2d_tpu_torch.ppo import learner
+    out = {}
+    for name, (B, dtype) in GREEDY_SHAPES.items():
+        want = greedy_carry(dev, B, dtype)
+        got = greedy_carry(dev, B, dtype)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        for t in range(learner.GREEDY_CHUNK):
+            mean = torch.randn(B, generator=gen, device=dev) * 0.7
+            want = greedy_step.step_plain(want, mean, DEFAULT_PARAMS)
+            greedy_step.greedy_step(got, mean, DEFAULT_PARAMS)
+            for k, g, w in zip(greedy_step.OPERANDS, carry_bits(got),
+                               carry_bits(want)):
+                check(torch.equal(g, w),
+                      f"greedy step {name}: {k} differs after step {t + 1}")
+        members = name == "pop32"
+        model = ActorCritic(generator=torch.Generator().manual_seed(5))
+        params = flatten(model).to(dev)
+        if members:
+            params = params.expand(POP, -1).contiguous()
+        es, obs = vector.reset_batch(B, DEFAULT_PARAMS,
+                                     torch.Generator().manual_seed(6), dtype,
+                                     dev)
+        greedy = learner.GreedyEval(members=members, device=dev)
+        greedy(params, es, obs, DEFAULT_PARAMS)
+        n0 = greedy_step.greedy_step.launches
+        ep = greedy(params, es, obs, DEFAULT_PARAMS)
+        launches = greedy_step.greedy_step.launches - n0
+        steps = int(ep["length"].max())
+        print(f"[greedy_step] {name} ({B} envs, {dtype}): 64 steps bit for "
+              f"bit against the eager step; one eval {launches} launches, "
+              f"its longest episode {steps} steps")
+        check(launches >= steps, "fewer launches than steps")
+        out[name] = ((dev, B, dtype), launches)
+        ms, eager_ms, (b_ms, _) = time_greedy_step(out[name][0])
+        print(f"[greedy_step] {name}: {ms * 1e3:.2f} us a step as a "
+              f"replayed chunk (bound {b_ms * 1e3:.3f} us by bytes); the "
+              f"eager step {eager_ms * 1e3:.1f} us")
+    flagship_exact_eval(dev)
+    return out
+
+
+def flagship_exact_eval(dev):
+    """The flagship on phase 6's 100 Mersenne spawns in float64 through
+    `GreedyEval` (its chunk graphs launch the greedy step kernel) and
+    through the eager loop: bit for bit, 100 goals, phase 6's mean."""
+    from acas2d_tpu_torch.oracle import MersenneSpawner
+    from acas2d_tpu_torch.ppo import learner
+    from acas2d_tpu_torch.utils.params_io import load_flat_params
+    params = load_flat_params(FLAGSHIP)[0].to(dev)
+    es, obs = learner.mersenne_reset(
+        DEFAULT_PARAMS, MersenneSpawner(DEFAULT_PARAMS, skip_episodes=2),
+        100, torch.float64, dev)
+    greedy = learner.GreedyEval(device=dev)
+    n0 = greedy_step.greedy_step.launches
+    got = greedy(params, es, obs, DEFAULT_PARAMS)
+    launches = greedy_step.greedy_step.launches - n0
+    eager = learner.greedy_rollout(lambda o: greedy.policy_mean(params, o),
+                                   es, obs, DEFAULT_PARAMS)
+    for k, v in eager.items():
+        check(torch.equal(got[k], v), f"the flagship's exact eval: {k}")
+    mean = float(np.mean(got["return"].cpu().numpy()))
+    goals = int((got["outcome"] == 1).sum())
+    print(f"[greedy_step] the flagship's exact eval through GreedyEval: "
+          f"{launches} kernel launches, {goals}/100 goals, mean {mean!r} "
+          f"(phase 6: {FLAGSHIP_EXACT!r}), bit for bit the eager loop's")
+    check(launches > 0 and goals == 100
+          and abs(mean - FLAGSHIP_EXACT) < EVAL_TOL,
+          "the flagship's exact eval through GreedyEval")
+
+
 # ------------------------------------------------------------------ phase 7
 
 def env_state(dev, B, seed=5):
@@ -2686,6 +2848,12 @@ def main(argv=None) -> int:
         phase_adv_norm(dev)
         print_device_lines()
         return 0
+    if argv[:1] == ["--greedy-step"]:
+        phase_greedy_step(dev)
+        phase_eval()
+        phase_greedy_graphs()
+        print_device_lines()
+        return 0
     roll = {"solo": phase_rollout(dev, 1, SOLO_B),
             "members": phase_rollout(dev, POP, POP_B)}
     grads = {"solo": phase_grads(dev, 1, SOLO_N),
@@ -2717,6 +2885,7 @@ def main(argv=None) -> int:
     phase_host_surface()
     roll8, grads8, sub_launches = phase_last_modules(dev, eval_res)
     adv_norm = phase_adv_norm(dev)
+    greedy = phase_greedy_step(dev)
     cu, pt = "acas2d_tpu_torch/csrc/", "acas2d_tpu/ops/"
     rows = [
         ("policy_rollout", time_rollout,
@@ -2759,6 +2928,11 @@ def main(argv=None) -> int:
          pop_launches["adv_norm"] if name == "members" else None,
          cu + "ppo_grads.cu", "none (jnp: " + pt + "pallas_update.py:290)")
         for name, (x, err) in adv_norm.items()
+    ] + [
+        (f"greedy_step_{name}", time_greedy_step, args, 0.0, launches,
+         cu + "greedy_step.cu", "none (XLA: acas2d_tpu/ppo/learner.py's "
+         "greedy lax.scan)")
+        for name, (args, launches) in greedy.items()
     ]
     bf16_phases = bf16_launches[2]
     kernels = phase_timing(
