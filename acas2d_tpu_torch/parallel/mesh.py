@@ -31,16 +31,14 @@ Each collective that runs is a span (`collective.all_reduce`,
 `collective.all_gather`, `collective.broadcast`; the join is `mesh.join`)
 and adds to the counters `collective.all_reduce`, `collective.all_gather`
 and their bytes (`.bytes`: the all-reduced buffer, the gathered output),
-while a profiler records (`utils/profiling`).  `TALLY` counts the same
-always, those captured into a CUDA graph included, where no counter
-counts: `learner.ReplayedLoop` reads from it what its captured iteration
-holds and counts that at every replay.
+while a profiler records, and to `TALLY` always (`utils.profiling.tally`:
+one tally for the program's work; a CUDA graph's capture is counted by
+its replays, `learner.ReplayedLoop`).
 """
 
 from __future__ import annotations
 
 import atexit
-import collections
 import dataclasses
 import datetime
 import os
@@ -60,22 +58,17 @@ from acas2d_tpu_torch.utils import profiling
 SEED_STRIDE = 7919
 # how long a collective (and the join) may wait for the other ranks
 TIMEOUT_S = 600
-# the collectives this process has run and their bytes, by counter name,
-# counted on every call (captured ones included) whether or not a profiler
-# records
-TALLY = collections.Counter()
+# the program's tally, which holds the collectives this process has run
+# and their bytes by counter name
+TALLY = profiling.TALLY
 
 
 def _tally(kind: str, x: torch.Tensor) -> None:
-    """Count one collective `kind` over `x` (the all-reduced buffer, the
-    gathered output) in TALLY, and, unless it is being captured into a
-    CUDA graph (whose replays count it), in the program's counters."""
-    name, n = f"collective.{kind}", x.numel() * x.element_size()
-    TALLY[name] += 1
-    TALLY[name + ".bytes"] += n
-    if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
-        profiling.count(name)
-        profiling.count(name + ".bytes", n)
+    """Tally one collective `kind` over `x` (the all-reduced buffer, the
+    gathered output)."""
+    name = f"collective.{kind}"
+    profiling.tally(name, 1, x.device)
+    profiling.tally(name + ".bytes", x.numel() * x.element_size(), x.device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -78,7 +78,6 @@ from acas2d_tpu_torch.ops.policy_rollout import (
     fused_policy_rollout, fused_policy_rollout_members, seed_int32)
 from acas2d_tpu_torch.ops.ppo_grads import (normalize_adv_minibatches,
                                             ppo_minibatch_grads_members)
-from acas2d_tpu_torch.parallel import mesh as mesh_lib
 from acas2d_tpu_torch.parallel.mesh import (Mesh, all_gather_rows,
                                             all_reduce_mean, all_reduce_sum,
                                             backend_of, env_rows, fold_seed,
@@ -440,7 +439,9 @@ def rollout_members(params: torch.Tensor, env_state: EnvState,
     params (P, N_PARAMS); env_state leaves and obs (P, B, ...); draws of
     batch shape (P, B).  Returns (env_state', obs', batch with (T, P, B,
     ...) leaves, last values (P, B), JAX's six episode metrics (P,)); with
-    a `mesh` (the envs a rank's rows), the metrics are the whole batch's."""
+    a `mesh` (the envs a rank's rows), the metrics are the whole batch's.
+    Its T batched steps are tallied as `rollout.env_steps`
+    (`utils.profiling.tally`)."""
     P, B = obs.shape[:2]
     T, PB, dtype = cfg.n_steps, P * B, params.dtype
     noise = draws.noise.reshape(T, P, B).to(dtype)
@@ -474,6 +475,7 @@ def rollout_members(params: torch.Tensor, env_state: EnvState,
     metrics = episode_metrics(episode_sums(
         b["done"], b["episode_return"], b["episode_steps"], b["outcome"],
         dtype), mesh)
+    profiling.tally("rollout.env_steps", T, obs.device)
     return _envs_view(es, 1, (P, B)), obs, batch, last_values, metrics
 
 
@@ -753,7 +755,9 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
     (P, M, 13) slice is contiguous, and `normalize_adv_minibatches`
     normalises every minibatch of every member in place, once an epoch,
     before its steps; on a mesh every rank holds the whole gathered
-    batch, so each minibatch is still normalised whole."""
+    batch, so each minibatch is still normalised whole.  The autograd
+    update's minibatch steps are tallied as `update.autograd_steps`
+    (`utils.profiling.tally`)."""
     P, N = data.shape[:2]
     block = cfg.shuffle_block
     n_blocks = N // block
@@ -783,6 +787,9 @@ def ppo_update_members(params: torch.Tensor, opt_state: AdamState,
             params = params + updates
             for k, v in aux.items():
                 aux_all.setdefault(k, []).append(v)
+    if not cfg.fused_update:
+        profiling.tally("update.autograd_steps", cfg.n_epochs * n_mb,
+                        data.device)
     metrics = {k: torch.stack(v, -1).mean(-1) for k, v in aux_all.items()}
     return params, opt_state, metrics
 
@@ -1126,9 +1133,9 @@ class _IterationGraph:
     Inside the graph the new state is copied back into the static state,
     so replays chain with no copy between them, and the metrics are packed
     into one static tensor.  The launch counters that the capture moved
-    are put back; each replay adds the launches it holds, and counts the
-    collectives it holds (`parallel.mesh.TALLY` over the capture) in the
-    program's counters while a profiler records.  Both the eager
+    are put back, and so is what it tallied (`utils.profiling.TALLY`:
+    the collectives, the unfused paths' env and minibatch steps); each
+    replay adds the launches and the tally it holds.  Both the eager
     iteration and the capture launch the phase marks (`phase_marks`), so
     every replay carries them."""
 
@@ -1147,19 +1154,20 @@ class _IterationGraph:
             self.inputs = [x.clone() for x in inputs]
             self.static = _with_leaves(state, self.leaves, 0, 0)
             before = [c.launches for c in _COUNTERS]
-            tallied = dict(mesh_lib.TALLY)
+            tallied = dict(profiling.TALLY)
             self.graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(self.graph, stream=stream):
                     self.metrics = self.captured()
             finally:
-                self.collectives = {k: n - tallied.get(k, 0) for k, n in
-                                    mesh_lib.TALLY.items()
-                                    if n != tallied.get(k, 0)}
                 self.launches = [c.launches - n
                                  for c, n in zip(_COUNTERS, before)]
                 for c, n in zip(_COUNTERS, before):
                     c.launches = n
+                self.tallied = {k: n - tallied.get(k, 0) for k, n in
+                                profiling.TALLY.items()
+                                if n != tallied.get(k, 0)}
+                profiling.TALLY.subtract(self.tallied)
         current.wait_stream(stream)
 
     def captured(self) -> torch.Tensor:
@@ -1186,8 +1194,8 @@ class _IterationGraph:
         self.graph.replay()
         for c, n in zip(_COUNTERS, self.launches):
             c.launches += n
-        for k, n in self.collectives.items():
-            profiling.count(k, n)
+        for k, n in self.tallied.items():
+            profiling.tally(k, n, self.metrics.device)
         return self.metrics.clone()
 
 

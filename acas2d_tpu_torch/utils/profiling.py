@@ -10,6 +10,12 @@
     stack per thread) and a small key; the newest `MAX_SPANS` are kept,
     and `dropped()` counts the older ones.  `spans()`, `counters()` and
     `clear()` read and reset them;
+  * `tally(name, n, device)` — the program's one count of its work
+    (`TALLY`: the collectives and their bytes, the unfused paths' env and
+    minibatch steps), kept whether or not a profiler records, and added to
+    counter `name` too unless the work is being captured into a CUDA
+    graph: `learner.ReplayedLoop` puts back what its capture tallied and
+    tallies it again at every replay;
   * `Trace` — `torch.profiler` over the CPU and, on a card, the CUDA
     activities, written to `out_dir/trace.json` as a Chrome trace
     (chrome://tracing, Perfetto) with the spans recorded in it, where JAX
@@ -145,6 +151,19 @@ spans = RECORDER.spans
 counters = RECORDER.counters
 dropped = RECORDER.dropped
 clear = RECORDER.clear
+
+# the program's work by counter name, whether or not a profiler records
+TALLY = collections.Counter()
+
+
+def tally(name: str, n: int, device: torch.device) -> None:
+    """Add `n` to TALLY[name] and, unless work on `device` is being
+    captured into a CUDA graph (whose replays count it), to counter
+    `name`."""
+    TALLY[name] += n
+    if not (device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        count(name, n)
 
 
 class Trace:

@@ -42,6 +42,7 @@ from acas2d_tpu_torch.models.actor_critic import ActorCritic, flatten
 from acas2d_tpu_torch.ppo import learner, population
 from acas2d_tpu_torch.ppo.config import PPOConfig, tpu_default
 from acas2d_tpu_torch.types import EnvState
+from acas2d_tpu_torch.utils import profiling
 from acas2d_tpu_torch.utils.params_io import from_jax_params
 
 TINY = dict(n_envs=64, n_steps=16, fused_chunk=8, minibatch_size=256,
@@ -67,6 +68,13 @@ def one_thread():
 
 
 def _case(kind):
+    if kind == "ref":
+        # the reference preset (one env, minibatch 64 cut to 16, the
+        # unfused rollout and the autograd update) at 32 steps
+        cfg = PPOConfig(n_steps=32, minibatch_size=16, n_epochs=2)
+        return (cfg, lambda: learner.init_train_state(cfg, TP, "cpu"),
+                learner.make_train_step(cfg, TP, "cpu"),
+                learner._solo_iteration(cfg, TP, torch.device("cpu")))
     cfg = PPOConfig(**TINY, fused_update_bf16=kind == "bf16")
     if kind == "p2":
         return (cfg, lambda: population.init_population(cfg, TP, 2, "cpu"),
@@ -97,7 +105,7 @@ def _eager(step, state, n):
     return state, rows
 
 
-@pytest.mark.parametrize("kind", ["solo", "p2", "bf16"])
+@pytest.mark.parametrize("kind", ["solo", "p2", "bf16", "ref"])
 def test_a_call_equals_k_eager_steps(kind):
     cfg, init, step, _ = _case(kind)
     a, rows = _eager(step, init(), 6)
@@ -113,11 +121,18 @@ def test_a_call_equals_k_eager_steps(kind):
 
 class _EagerGraph:
     """Stands in for torch.cuda.CUDAGraph: replay() reruns the captured
-    iteration on the static tensors."""
+    iteration on the static tensors, and, as a graph's replay runs no host
+    code, leaves the program's tally and counters as they were."""
     owner = None
 
     def replay(self):
+        rec = profiling.RECORDER
+        kept, counted = dict(profiling.TALLY), dict(rec._counters)
         self.owner.metrics.copy_(_real_captured(self.owner))
+        profiling.TALLY.clear()
+        profiling.TALLY.update(kept)
+        rec._counters.clear()
+        rec._counters.update(counted)
 
 
 _real_captured = learner._IterationGraph.captured
@@ -149,7 +164,7 @@ def eager_graphs(monkeypatch):
     monkeypatch.setattr(learner._IterationGraph, "captured", captured)
 
 
-@pytest.mark.parametrize("kind", ["solo", "p2", "bf16"])
+@pytest.mark.parametrize("kind", ["solo", "p2", "bf16", "ref"])
 def test_the_replayed_loop_keeps_its_books(kind, eager_graphs):
     """The card's loop with an eager stand-in for its graph: two calls of
     K = 3 (the first builds the graph from its first iteration) equal six
@@ -166,6 +181,30 @@ def test_the_replayed_loop_keeps_its_books(kind, eager_graphs):
     assert len(loop._graphs) == 1 and b0.iteration == 0
     assert all(torch.equal(x, y)
                for x, y in zip(before, learner._state_leaves(b0)))
+
+
+def test_a_replay_tallies_what_its_capture_held(eager_graphs):
+    """The unfused path's env and minibatch steps: the capture's own
+    tally is put back, and each replay adds the iteration's (32 env steps,
+    2 x 2 autograd steps) to TALLY and, while a profiler records, to the
+    counters."""
+    cfg, init, _, iteration = _case("ref")
+    keys = ("rollout.env_steps", "update.autograd_steps")
+    due = {"rollout.env_steps": 32, "update.autograd_steps": 4}
+    loop = learner.ReplayedLoop(iteration, cfg, 3)
+    before = {k: profiling.TALLY.get(k, 0) for k in keys}
+    b, _ = loop(init())
+    graph, = loop._graphs.values()
+    assert graph.tallied == due
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiling.clear()
+        b, _ = loop(b)
+        counted = profiling.counters()
+    profiling.clear()
+    for k in keys:
+        assert profiling.TALLY[k] - before[k] == 6 * due[k]
+        assert counted[k] == 3 * due[k]
 
 
 @pytest.mark.parametrize("requested", [None, 0, 1, 4, 32])

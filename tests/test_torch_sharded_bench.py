@@ -191,7 +191,8 @@ def card_rank(out: str) -> None:
         learner._state_leaves(eager), learner._state_leaves(replayed)))
     same = same and all(torch.equal(torch.stack([r[k] for r in rows]),
                                     metrics[k]) for k in metrics)
-    tally = dict(next(iter(loop._graphs.values())).collectives)
+    tally = {k: v for k, v in next(iter(loop._graphs.values()))
+             .tallied.items() if k.startswith("collective.")}
     profiling.clear()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]):
